@@ -15,8 +15,8 @@ import torch
 from ..sparse.graph import CSRGraph, _build_arrays, from_edge_index
 from ..sparse.tiling import TiledGraph
 
-__all__ = ["NodeDataset", "rmat_edges", "sbm_dataset", "gen_rmat_graph",
-           "gen_gcnsig_graph"]
+__all__ = ["NodeDataset", "rmat_edges", "rmat_dataset", "sbm_dataset",
+           "gen_rmat_graph", "gen_gcnsig_graph"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +31,14 @@ class NodeDataset:
     val_mask: np.ndarray
     test_mask: np.ndarray
     num_classes: int
+
+    @property
+    def num_features(self) -> int:
+        return int(self.x.shape[1])
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.x.shape[0])
 
 
 def rmat_edges(num_nodes: int, num_edges: int, seed: int = 0,
@@ -52,6 +60,34 @@ def rmat_edges(num_nodes: int, num_edges: int, seed: int = 0,
     dst %= num_nodes
     keep = src != dst
     return np.stack([src[keep], dst[keep]])
+
+
+def rmat_dataset(
+    num_nodes: int,
+    num_edges: int,
+    num_features: int,
+    num_classes: int,
+    name: str = "rmat",
+    seed: int = 0,
+    edge_multiple: int = 4096,
+    undirected: bool = True,
+    device: str | torch.device = "cuda",
+) -> NodeDataset:
+    """Size-matched benchmark dataset: R-MAT structure with class-correlated
+    features (class centroids plus noise of scale 2)."""
+    rng = np.random.default_rng(seed + 1)
+    ei = rmat_edges(num_nodes, num_edges, seed)
+    if undirected:
+        ei = np.concatenate([ei, ei[::-1]], axis=1)
+    graph = from_edge_index(ei, num_nodes=num_nodes,
+                            edge_multiple=edge_multiple, device=device)
+    y = rng.integers(0, num_classes, size=num_nodes).astype(np.int32)
+    centers = rng.normal(size=(num_classes, num_features)).astype(np.float32)
+    x = centers[y] + rng.normal(
+        scale=2.0, size=(num_nodes, num_features)).astype(np.float32)
+    masks = _split_masks(num_nodes, rng)
+    return NodeDataset(name, graph, x.astype(np.float32), y, *masks,
+                       num_classes=num_classes)
 
 
 def sbm_dataset(

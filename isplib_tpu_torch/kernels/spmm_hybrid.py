@@ -2,8 +2,8 @@
 added into it.
 
 Counterpart of ``isplib_tpu/kernels/spmm_pallas.py:219-281``
-(``spmm_forward`` / ``spmm_transpose_sum`` over a v5 plan).  Max/min have no
-kernel here yet (K3): ``ops/spmm.py`` dispatches them.
+(``spmm_forward`` / ``spmm_transpose_sum`` over a v5 plan).  Max/min run
+their own kernel (``spmm_minmax_v4``), which ``ops/spmm.py`` dispatches.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Graph transforms run once per graph on the host, the counterpart of
-``isplib_tpu.nn.transforms`` (``add_self_loops``, ``gcn_norm``).  The result
-lives on the input graph's device."""
+``isplib_tpu.nn.transforms`` (``add_self_loops``, ``gcn_norm``,
+``row_normalize``).  The result lives on the input graph's device."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import numpy as np
 
 from ..sparse.graph import CSRGraph, from_edge_index
 
-__all__ = ["add_self_loops", "gcn_norm"]
+__all__ = ["add_self_loops", "gcn_norm", "row_normalize"]
 
 
 def _coo(graph: CSRGraph):
@@ -45,6 +45,18 @@ def gcn_norm(graph: CSRGraph, add_loops: bool = True,
     dinv = 1.0 / np.sqrt(np.maximum(deg, 1e-12))
     dinv[deg <= 0] = 0.0
     new_val = (dinv[row] * val * dinv[col]).astype(np.float32)
+    return from_edge_index(np.stack([col, row]), num_nodes=graph.num_rows,
+                           edge_value=new_val, edge_multiple=edge_multiple,
+                           device=graph.device)
+
+
+def row_normalize(graph: CSRGraph, edge_multiple: int = 512) -> CSRGraph:
+    """Â = D^{-1} A (random-walk normalisation)."""
+    row, col, val = _coo(graph)
+    deg = np.zeros(graph.num_rows, np.float64)
+    np.add.at(deg, row, val.astype(np.float64))
+    dinv = np.where(deg > 0, 1.0 / np.maximum(deg, 1e-12), 0.0)
+    new_val = (dinv[row] * val).astype(np.float32)
     return from_edge_index(np.stack([col, row]), num_nodes=graph.num_rows,
                            edge_value=new_val, edge_multiple=edge_multiple,
                            device=graph.device)

@@ -8,9 +8,17 @@ Counterpart of ``isplib_tpu.ops.xla_backend``, written with ``index_select``,
   out[r] = (1/max(deg[r],1)) * sum_{e} value[e] * x[col[e]]   (mean)
 
 Empty rows give 0 for max/min, with arg ``nnz_padded - 1`` (a pad edge), and
-arg ties go to the lowest edge id.  Pad edges (row == num_rows, col ==
-num_cols) land in a dump row that is sliced off and read a phantom zero row
-of x, so nothing is masked.
+arg ties go to the lowest edge id.  A max/min of zeros is +0.0 whatever
+their signs (``scatter_reduce_`` picks either sign of a tied zero).  Pad
+edges (row == num_rows, col == num_cols) land in a dump row that is sliced
+off and read a phantom zero row of x, so nothing is masked.
+
+Features are independent, so both SpMMs run over chunks of features whose
+(nnz_padded, chunk) temporaries stay within ``CHUNK_BYTES``: at K = 602 on
+5.7M edges the unchunked arg path would hold about 55 GB at once.  A graph
+whose temporaries fit runs in one pass.  Each output element is computed by
+the same operations in the same order as without chunks, so the results are
+the same bit for bit.
 """
 
 from __future__ import annotations
@@ -19,17 +27,37 @@ import torch
 
 from .semiring import Reduce
 
-__all__ = ["spmm_raw", "spmm_arg_raw", "sddmm_dot_raw", "gather_rows"]
+__all__ = ["spmm_raw", "spmm_arg_raw", "sddmm_dot_raw", "gather_rows",
+           "CHUNK_BYTES"]
+
+CHUNK_BYTES = 2 << 30  # bytes of per-edge temporaries one chunk may take
+# temporaries per edge and feature: the gathered x rows and their products
+_SUM_EDGE_FEATURE_BYTES = 8
+# the arg path's: products, their compared copy, the tie mask and two int64
+# id tensors
+_ARG_EDGE_FEATURE_BYTES = 32
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``idx`` of x (N, K); ``idx`` may address row N (phantom zero)."""
-    x_pad = torch.cat([x, x.new_zeros(1, x.shape[1])], dim=0)
-    return x_pad.index_select(0, idx)
+    return _pad_row(x).index_select(0, idx)
 
 
-def _contrib(col, value, x):
-    return value.to(x.dtype)[:, None] * gather_rows(x, col)
+def _pad_row(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros(1, x.shape[1])], dim=0)
+
+
+def _chunks(nnz_padded: int, k: int, edge_feature_bytes: int) -> list[slice]:
+    """Feature slices whose temporaries of ``edge_feature_bytes`` per edge
+    and feature stay within ``CHUNK_BYTES`` (at least one feature each)."""
+    width = max(1, CHUNK_BYTES // max(nnz_padded * edge_feature_bytes, 1))
+    return [slice(k0, min(k0 + width, k)) for k0 in range(0, k, width)]
+
+
+def _contrib(col, value, x_pad, feats: slice):
+    """value[e] * x[col[e], feats] for every (padded) edge e."""
+    return value.to(x_pad.dtype)[:, None] * x_pad[:, feats].index_select(
+        0, col)
 
 
 def spmm_raw(
@@ -43,20 +71,26 @@ def spmm_raw(
 ) -> torch.Tensor:
     """SpMM forward on raw padded COO arrays (CSR-sorted rows)."""
     reduce = Reduce.of(reduce)
-    contrib = _contrib(col, value, x)
-    k = x.shape[1]
-    if reduce in (Reduce.SUM, Reduce.MEAN):
-        out = x.new_zeros(num_rows + 1, k).index_add_(0, row, contrib)
-        out = out[:num_rows]
-        if reduce is Reduce.MEAN:
-            out = out / deg.clamp(min=1.0).to(out.dtype)[:, None]
-        return out
-    ident = float("-inf") if reduce is Reduce.MAX else float("inf")
-    idx = row.long()[:, None].expand(-1, k)
-    out = x.new_full((num_rows + 1, k), ident).scatter_reduce_(
-        0, idx, contrib, "amax" if reduce is Reduce.MAX else "amin")
-    out = out[:num_rows]
-    return torch.where((deg > 0)[:, None], out, torch.zeros_like(out))
+    x_pad = _pad_row(x)
+    outs = []
+    for feats in _chunks(col.shape[0], x.shape[1], _SUM_EDGE_FEATURE_BYTES):
+        contrib = _contrib(col, value, x_pad, feats)
+        w = contrib.shape[1]
+        if reduce in (Reduce.SUM, Reduce.MEAN):
+            out = x.new_zeros(num_rows + 1, w).index_add_(0, row, contrib)
+        else:
+            ident = float("-inf") if reduce is Reduce.MAX else float("inf")
+            out = x.new_full((num_rows + 1, w), ident).scatter_reduce_(
+                0, row.long()[:, None].expand(-1, w), contrib,
+                "amax" if reduce is Reduce.MAX else "amin")
+        outs.append(out[:num_rows])
+    out = torch.cat(outs, dim=1) if outs else x.new_zeros(num_rows, 0)
+    if reduce is Reduce.MEAN:
+        out = out / deg.clamp(min=1.0).to(out.dtype)[:, None]
+    elif reduce in (Reduce.MAX, Reduce.MIN):
+        out = torch.where((deg > 0)[:, None], out + 0.0,
+                          torch.zeros_like(out))
+    return out
 
 
 def spmm_arg_raw(
@@ -73,22 +107,29 @@ def spmm_arg_raw(
     if reduce not in (Reduce.MAX, Reduce.MIN):
         raise ValueError(f"spmm_arg_raw takes max or min, got {reduce}")
     nnz_padded = col.shape[0]
-    k = x.shape[1]
-    contrib = _contrib(col, value, x)
-    cmp = contrib if reduce is Reduce.MAX else -contrib
-    idx = row.long()[:, None].expand(-1, k)
-    best = x.new_full((num_rows + 1, k), float("-inf")).scatter_reduce_(
-        0, idx, cmp, "amax")
-    is_best = cmp == best.index_select(0, row)
-    eid = torch.arange(nnz_padded, device=x.device)[:, None].expand(-1, k)
-    eid = torch.where(is_best, eid, torch.full_like(eid, nnz_padded - 1))
-    arg = torch.full((num_rows + 1, k), nnz_padded - 1, dtype=torch.int64,
-                     device=x.device).scatter_reduce_(0, idx, eid, "amin")
-    out = (best if reduce is Reduce.MAX else -best)[:num_rows]
+    x_pad = _pad_row(x)
+    eids = torch.arange(nnz_padded, device=x.device)[:, None]
+    outs, args = [], []
+    for feats in _chunks(nnz_padded, x.shape[1], _ARG_EDGE_FEATURE_BYTES):
+        contrib = _contrib(col, value, x_pad, feats)
+        w = contrib.shape[1]
+        cmp = contrib if reduce is Reduce.MAX else -contrib
+        idx = row.long()[:, None].expand(-1, w)
+        best = x.new_full((num_rows + 1, w), float("-inf")).scatter_reduce_(
+            0, idx, cmp, "amax")
+        is_best = cmp == best.index_select(0, row)
+        eid = torch.where(is_best, eids, nnz_padded - 1)
+        arg = torch.full((num_rows + 1, w), nnz_padded - 1,
+                         dtype=torch.int64, device=x.device).scatter_reduce_(
+                             0, idx, eid, "amin")
+        outs.append((best if reduce is Reduce.MAX else -best)[:num_rows])
+        args.append(arg[:num_rows])
+    out = torch.cat(outs, dim=1) if outs else x.new_zeros(num_rows, 0)
+    arg = (torch.cat(args, dim=1) if args else torch.zeros(
+        num_rows, 0, dtype=torch.int64, device=x.device))
     valid = (deg > 0)[:, None]
-    out = torch.where(valid, out, torch.zeros_like(out))
-    arg = torch.where(valid, arg[:num_rows],
-                      torch.full_like(arg[:num_rows], nnz_padded - 1))
+    out = torch.where(valid, out + 0.0, torch.zeros_like(out))
+    arg = torch.where(valid, arg, torch.full_like(arg, nnz_padded - 1))
     return out, arg.to(torch.int32)
 
 

@@ -8,16 +8,19 @@ Backward formulas (as in the JAX package):
   max/min: gradients route through the winning edge of each (row, feature).
 
 On a TiledGraph, sum and mean run the hybrid CUDA kernels forward and, for
-``grad_x``, over the transpose plan.  ``grad_v`` (the SDDMM, K4 in
-``ROADMAP.md``) is the plain formula and is computed only when the edge
-values require a gradient.  Pad edges never get a gradient.
+``grad_x``, over the transpose plan; max and min run the max/min kernel
+(K3) over the ``fwd_mm`` plan, which also returns the winning edge ids.  A
+plain CSRGraph runs the reference path on any device, as the JAX package
+runs XLA there.  ``grad_v`` (the SDDMM, K4 in ``ROADMAP.md``) is the plain
+formula and is computed only when the edge values require a gradient.  Pad
+edges never get a gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels import spmm_hybrid
+from ..kernels import spmm_hybrid, spmm_minmax_v4
 from ..sparse.tiling import TiledGraph, base_graph
 from . import reference
 from .semiring import Reduce
@@ -32,8 +35,10 @@ class SpMM(torch.autograd.Function):
 
     ``value`` is the graph's edge-value vector (CSR order, padded).  With
     ``backend="auto"`` a TiledGraph runs the hybrid kernels for sum/mean and
-    a CSRGraph runs the reference path; ``"reference"`` always runs the
-    reference path.  The kernels read the values baked into the plan.
+    the max/min kernel for max/min, and a CSRGraph runs the reference path;
+    ``"reference"`` always runs the reference path.
+    The hybrid kernels read the values baked into the plan; the max/min
+    kernel reads ``value``.
     """
 
     @staticmethod
@@ -43,14 +48,14 @@ class SpMM(torch.autograd.Function):
         tiled = backend == "auto" and isinstance(graph, TiledGraph)
         arg = None
         if reduce in (Reduce.MAX, Reduce.MIN):
-            if x.is_cuda:
-                raise NotImplementedError(
-                    f"reduce={reduce.value!r} on CUDA needs the max/min arg "
-                    "kernel K3 (isplib_tpu/kernels/spmm_minmax_v4.py), which "
-                    "is not ported yet: see ROADMAP.md, Queue 2, K3")
-            out, arg = reference.spmm_arg_raw(
-                base.row, base.col, value, base.deg, x, base.num_rows,
-                reduce)
+            if tiled:
+                out, arg = spmm_minmax_v4.spmm_minmax_v4(
+                    graph.fwd_mm, base.col, value.contiguous(),
+                    x.contiguous(), reduce, base.nnz_padded - 1)
+            else:
+                out, arg = reference.spmm_arg_raw(
+                    base.row, base.col, value, base.deg, x, base.num_rows,
+                    reduce)
         elif tiled:
             out = spmm_hybrid.spmm_forward(graph, x, reduce)
         else:
@@ -80,20 +85,25 @@ class SpMM(torch.autograd.Function):
             if need_v:
                 grad_v = reference.sddmm_dot_raw(base.row, base.col, g_eff, x)
         else:
+            # The cotangent routes through the winning edge of each (row,
+            # feature): a scatter in plain PyTorch, as the JAX package
+            # computes this step with XLA scatters outside any Pallas kernel.
+            # Flat indices (col of the winner) * K + feature address the
+            # (C + 1, K) gradient, whose last row takes the empty rows'
+            # sentinel (a pad edge of column C).
             k = x.shape[1]
-            arg = arg.long()
-            col_of_arg = base.col.long()[arg]                       # (R, K)
-            feat = torch.arange(k, device=x.device).expand_as(arg)
+            arg = arg.long().reshape(-1)
+            flat = (base.col.long()[arg].view(-1, k) * k
+                    + torch.arange(k, device=x.device)).reshape(-1)
+            g_flat = g.reshape(-1)
             if need_x:
-                grad_x = x.new_zeros(base.num_cols + 1, k).index_put_(
-                    (col_of_arg, feat), value.to(g.dtype)[arg] * g,
-                    accumulate=True)[: base.num_cols]
+                grad_x = x.new_zeros((base.num_cols + 1) * k).index_add_(
+                    0, flat, value.to(g.dtype)[arg] * g_flat)
+                grad_x = grad_x.view(base.num_cols + 1, k)[: base.num_cols]
             if need_v:
-                x_pad = torch.cat([x, x.new_zeros(1, k)])
+                x_pad = torch.cat([x, x.new_zeros(1, k)]).reshape(-1)
                 grad_v = value.new_zeros(base.nnz_padded, dtype=g.dtype)
-                grad_v.index_put_((arg.reshape(-1),),
-                                  (x_pad[col_of_arg, feat] * g).reshape(-1),
-                                  accumulate=True)
+                grad_v.index_add_(0, arg, x_pad[flat] * g_flat)
         if grad_v is not None:
             grad_v = grad_v.to(value.dtype)
             grad_v[base.nnz:] = 0  # pad edges, incl. the arg sentinel
@@ -108,7 +118,7 @@ def spmm(graph, x: torch.Tensor, reduce: str | Reduce = "sum",
       graph: CSRGraph or TiledGraph (R × C).
       x: dense operand (C, K).
       reduce: sum | mean | max | min.
-      backend: ``"auto"`` (the hybrid kernels for a TiledGraph) or
+      backend: ``"auto"`` (the kernels for a TiledGraph) or
         ``"reference"`` (the plain PyTorch path for any graph).
     """
     if backend not in _BACKENDS:

@@ -1,9 +1,10 @@
-"""A graph with its hybrid SpMM plans, the counterpart of
-``isplib_tpu.sparse.tiling`` (v5 plans only).
+"""A graph with its SpMM plans, the counterpart of ``isplib_tpu.sparse.tiling``
+(v5 hybrid plans and the max/min plan).
 
-``fwd`` drives ``spmm(A, x)`` and ``bwd`` is the plan of Aᵀ, built from the
-CSC arrays, for ``grad_x = spmm(Aᵀ, g)``.  The backward never runs the
-forward plan: that would compute ``spmm(A, g)``.
+``fwd`` drives sum/mean ``spmm(A, x)`` and ``bwd`` is the plan of Aᵀ, built
+from the CSC arrays, for ``grad_x = spmm(Aᵀ, g)``.  The backward never runs
+the forward plan: that would compute ``spmm(A, g)``.  ``fwd_mm`` drives
+max/min ``spmm(A, x)`` with the winning edge ids.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 from .graph import CSRGraph
+from .tiling_v4mm import MinMaxPlan, build_minmax_plan
 from .tiling_v5 import HybridPlan, build_hybrid_plan
 
 __all__ = ["TiledGraph", "build_tiling", "build_tiling_from_numpy",
@@ -23,11 +25,13 @@ AUTO_TILE_MIN_NNZ = 1_000_000
 
 @dataclasses.dataclass(frozen=True)
 class TiledGraph:
-    """A CSRGraph with the hybrid plans of A (``fwd``) and Aᵀ (``bwd``)."""
+    """A CSRGraph with the hybrid plans of A (``fwd``) and Aᵀ (``bwd``) and
+    the max/min plan of A (``fwd_mm``)."""
 
     graph: CSRGraph
     fwd: HybridPlan
     bwd: HybridPlan
+    fwd_mm: MinMaxPlan
 
     @property
     def num_rows(self) -> int:
@@ -61,7 +65,10 @@ def base_graph(g) -> CSRGraph:
 def build_tiling_from_numpy(graph: CSRGraph, arrays: dict,
                             dense_threshold: int = 64) -> TiledGraph:
     """Attach the plans of A and Aᵀ, built from the host arrays of
-    ``graph._build_arrays``, on the graph's device."""
+    ``graph._build_arrays``, on the graph's device, and the max/min plan of
+    A (from ``arrays["rowptr"]``; a few MB, always built, as the JAX
+    package's ``auto_tile`` does, so max/min on a tiled graph runs its
+    kernel)."""
     nnz = graph.nnz
     fwd = build_hybrid_plan(
         arrays["row"][:nnz], arrays["col"][:nnz], arrays["value"][:nnz],
@@ -71,14 +78,16 @@ def build_tiling_from_numpy(graph: CSRGraph, arrays: dict,
         arrays["csc_row"][:nnz], arrays["csc_col"][:nnz],
         arrays["csc_value"][:nnz], graph.num_cols, graph.num_rows,
         graph.device, dense_threshold=dense_threshold)
-    return TiledGraph(graph=graph, fwd=fwd, bwd=bwd)
+    fwd_mm = build_minmax_plan(arrays["rowptr"], graph.num_rows,
+                               graph.num_cols, graph.device)
+    return TiledGraph(graph=graph, fwd=fwd, bwd=bwd, fwd_mm=fwd_mm)
 
 
 def build_tiling(graph: CSRGraph, dense_threshold: int = 64) -> TiledGraph:
     """Attach the plans, reading the graph's edge arrays back to the host."""
     arrays = {f: getattr(graph, f).cpu().numpy()
-              for f in ("row", "col", "value", "csc_row", "csc_col",
-                        "csc_value")}
+              for f in ("rowptr", "row", "col", "value", "csc_row",
+                        "csc_col", "csc_value")}
     return build_tiling_from_numpy(graph, arrays, dense_threshold)
 
 

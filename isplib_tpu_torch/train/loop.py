@@ -12,13 +12,16 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..data.synthetic import NodeDataset
 from ..device import resolve_device
-from ..sparse.tiling import TiledGraph, auto_tile
+from ..nn.conv import BatchNorm
+from ..sparse.tiling import TiledGraph, auto_tile, base_graph
 
 __all__ = ["TrainResult", "train_node_classifier"]
 
@@ -42,11 +45,17 @@ class TrainResult:
         return f"{hdr}\n{'-' * 40}\n{row}"
 
 
-def _loss_fn(logits: torch.Tensor, y: torch.Tensor,
-             mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean negative log-likelihood of log-probs (GCN emits
-    log_softmax): the reference's ``loss='nll'``."""
-    per = -logits.gather(1, y[:, None].long())[:, 0]
+def _loss_fn(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+             loss: str = "nll") -> torch.Tensor:
+    """Masked mean loss.  ``'nll'`` expects log-probs (GCN and GraphSAGE
+    emit log_softmax); ``'ce'`` expects raw logits (GIN) and is the softmax
+    cross-entropy with integer labels."""
+    if loss == "nll":
+        per = -logits.gather(1, y[:, None].long())[:, 0]
+    elif loss == "ce":
+        per = F.cross_entropy(logits, y.long(), reduction="none")
+    else:
+        raise ValueError(f"loss must be 'nll' or 'ce', got {loss!r}")
     m = mask.to(per.dtype)
     return (per * m).sum() / m.sum().clamp(min=1.0)
 
@@ -89,18 +98,31 @@ def train_node_classifier(
     lr: float = 0.01,
     weight_decay: float = 5e-4,
     seed: int = 0,
+    loss: Optional[str] = None,
     device: str | torch.device = "cuda",
+    tile: bool = True,
 ) -> TrainResult:
     """Train ``model`` full-batch on ``ds`` and evaluate it once.
 
-    A large CSRGraph on CUDA is tiled first (``auto_tile``), so its SpMMs
-    run the hybrid kernels; a TiledGraph is used as it is.  ``seed`` seeds
-    the dropout generator.
+    With ``tile`` (the default) a large CSRGraph on CUDA is tiled first
+    (``auto_tile``), so its SpMMs run the kernels, and a TiledGraph is used
+    as it is; without it the SpMMs run the reference path on the plain
+    graph, tiled or not.  ``loss`` defaults to ``'ce'`` for a model
+    with batch statistics (GIN emits logits) and ``'nll'`` otherwise, as in
+    the JAX package.  ``seed`` seeds the dropout generator.  The warm-up
+    epoch's changes to the parameters and to the batch statistics are
+    undone before the timed epochs.
     """
     dev = resolve_device(device)
     model = model.to(dev)
+    if loss is None:
+        has_batch_stats = any(isinstance(m, BatchNorm)
+                              for m in model.modules())
+        loss = "ce" if has_batch_stats else "nll"
     graph = ds.graph
-    if not isinstance(graph, TiledGraph):
+    if not tile:
+        graph = base_graph(graph).to(dev)
+    elif not isinstance(graph, TiledGraph):
         graph = auto_tile(graph.to(dev))
     if graph.device != dev:
         raise ValueError(f"the graph is on {graph.device}, not {dev}")
@@ -112,7 +134,7 @@ def train_node_classifier(
     def step(opt, gen):
         opt.zero_grad(set_to_none=True)
         logits = model(graph, x, generator=gen)
-        lval = _loss_fn(logits, y, train_mask)
+        lval = _loss_fn(logits, y, train_mask, loss)
         lval.backward()
         opt.step()
         return lval.detach(), _masked_acc(logits.detach(), y, train_mask)
@@ -121,7 +143,8 @@ def train_node_classifier(
         return torch.optim.Adam(model.parameters(), lr=lr,
                                 weight_decay=weight_decay)
 
-    # warm-up epoch (builds the kernels, first-call costs), then restore
+    # warm-up epoch (builds the kernels, first-call costs), then restore the
+    # state_dict: the parameters and the BatchNorm running statistics
     model.train()
     init = {k: v.clone() for k, v in model.state_dict().items()}
     step(adam(), torch.Generator(device=dev).manual_seed(seed))
