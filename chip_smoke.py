@@ -45,6 +45,29 @@
 6. Profiles five more epochs per graph of GCN and of GraphSAGE-max with
    ``torch.profiler``: the device's busy time per epoch, its idle share,
    and the time by kernel.
+7. SDDMM and FusedMM (K4, K5, K6) on ``scripts/bench_fused.py``'s graph:
+   the R-MAT reddit stand-in, ``gen_rmat_graph(11648, 5730794,
+   crc32("reddit"), 4096)``, tiled by ``build_tiling``.  K4 at K = 32 and
+   41 on it and on the density-representative graph; K5 and both passes of
+   K6 for the sigmoid embedding kernel, the t-distribution force model and
+   COPY_RHS + MEAN at K = 32.  Each held against its plain version at
+   1e-4·max|plain| and timed beside its bound and, where one PyTorch call
+   computes the same function, that call (``torch.sparse.sampled_addmm``
+   for K4, ``torch.sparse.mm`` for COPY_RHS + MEAN; none for the SOP
+   pipelines).  Then the paths, each with the launch counts set to 0 just
+   before it:
+   * the FusedMM path: per SOP pipeline, 20 Adam steps on x, y (11648×32,
+     ``default_rng(0)``) with loss ``0.5e-6·Σ fused_mm(tiled, x, y, op)²``
+     (``bench_fused.py``'s loss); K5 and K6 must launch, the loss be finite
+     and fall, the step-0 gradients match the plain path's at 1e-4 of their
+     scale, and the final loss through the kernels match the plain CSRGraph
+     path's at 1e-4 relative; the step is timed and profiled;
+   * the SDDMM path: one backward of ``spmm(tiled, x, "sum")`` with edge
+     values that require a gradient on the density-representative graph
+     (K4 computes ``grad_value``), and the public ``sddmm`` forward and
+     backward, each against the plain formula;
+   * the fused max route: ``fused_mm`` with AOP = MAX (K3), forward and
+     grad against the plain path.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line; every
@@ -84,6 +107,10 @@ SHORT_EPOCHS = 10         # the other new models, at a smaller depth
 KS = (32, 41)             # GCN's SpMM widths, forward and over Aᵀ
 K_WIDE = 602              # the first layer of GraphSAGE and GIN
 MM_KS = (32, 41, K_WIDE)
+# scripts/bench_fused.py's graph and width
+RMAT_NODES, RMAT_EDGES, FUSED_K = 11_648, 5_730_794, 32
+SDDMM_KS = (32, 41)
+FUSED_STEPS = 20
 
 
 def log(msg: str) -> None:
@@ -310,13 +337,170 @@ def check_and_time_minmax(name, graph, tiled, reduce, k, gen):
             2.0 * n * k, FP32_FLOPS))
 
 
+def check_near_plain(label, got, want):
+    """A kernel against its plain version (or a path against the plain
+    path): within 1e-4·max|plain|, the kernel being fp32 and summing in
+    another order; returns the max error and the tolerance."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    tol = 1e-4 * float(want.abs().max()) if want.numel() else 0.0
+    if not (bool(torch.isfinite(got).all()) and err <= tol):
+        raise AssertionError(f"{label}: max err {err} > {tol}")
+    return err, tol
+
+
+def used(idx):
+    return int(torch.unique(idx).numel())
+
+
+def check_and_time_sddmm(name, graph, tiled, k, gen):
+    """K4 at (graph, K): against its plain version, and the timings beside
+    ``torch.sparse.sampled_addmm`` over the same pattern and the bound."""
+    from isplib_tpu_torch.kernels import sddmm as k4
+
+    plan, n = tiled.fwd_mm, graph.nnz
+    a = torch.randn(graph.num_rows, k, device=gen.device, generator=gen)
+    b = torch.randn(graph.num_cols, k, device=gen.device, generator=gen)
+    err, tol = check_near_plain(
+        f"sddmm {name} K={k}", k4.sddmm(plan, graph.col, a, b),
+        k4.sddmm_plain(plan, graph.col, a, b))
+    pattern = csr(graph.rowptr, graph.col[:n],
+                  torch.zeros(n, device=a.device), graph.shape)
+    bt = b.t().contiguous()
+    lib = torch.sparse.sampled_addmm(pattern, a, bt, beta=0.0)
+    lib_err = float((lib.values() - k4.sddmm_plain(plan, graph.col, a, b)[
+        :n]).abs().max())
+    return dict(
+        kernel="sddmm", graph=name, case="dot", k=k, max_abs_err=err,
+        tol=tol, lib_err=lib_err,
+        ms=cuda_ms(lambda: k4.sddmm(plan, graph.col, a, b)),
+        plain_ms=cuda_ms(lambda: k4.sddmm_plain(plan, graph.col, a, b),
+                         iters=5),
+        library_ms=cuda_ms(lambda: torch.sparse.sampled_addmm(
+            pattern, a, bt, beta=0.0)),
+        bound=bound_ms(
+            (2 * plan.nseg + 1) * 4 + n * 8
+            + (used(graph.row[:n]) + used(graph.col[:n])) * k * 4,
+            2.0 * n * k, FP32_FLOPS))
+
+
+def fused_ops_per_edge_feature(op, backward: bool) -> int:
+    """fp32 operations per edge and feature: the VOP, the ROP, and the
+    accumulation s·v (forward); backward adds <g, v>, s·g, the ROP's
+    chain term and dVOP·ĝv into the accumulator."""
+    from isplib_tpu_torch import ReduceOp, VectorOp
+    vop = 0 if op.vop in (VectorOp.COPY_RHS, VectorOp.COPY_LHS) else 1
+    rop = {ReduceOp.NOOP: 0, ReduceOp.DOT: 1, ReduceOp.NORM2: 2}[op.rop]
+    return vop + rop + 2 + (2 + 1 + rop + 2 if backward else 0)
+
+
+def check_and_time_fused(pname, op, graph, tiled, k, gen):
+    """K5 and both passes of K6 for one pipeline at K: against their plain
+    versions, and the timings beside the bound (and ``torch.sparse.mm`` for
+    COPY_RHS + MEAN, the one pipeline a PyTorch call computes)."""
+    from isplib_tpu_torch import ScaleOp, VectorOp
+    from isplib_tpu_torch.kernels import fused as k5
+    from isplib_tpu_torch.kernels import fused_bwd as k6
+    from isplib_tpu_torch.ops import reference
+
+    n, r, c = graph.nnz, graph.num_rows, graph.num_cols
+    x = torch.randn(r, k, device=gen.device, generator=gen)
+    y = torch.randn(c, k, device=gen.device, generator=gen)
+    g = torch.randn(r, k, device=gen.device, generator=gen)
+    if op.vsc is ScaleOp.MEAN:
+        g = g / graph.deg.clamp(min=1.0)[:, None]
+    fwd = (tiled.fwd_mm, graph.col, graph.value, graph.deg, x, y, op)
+    want5 = k5.fused_plain(*fwd)  # float64 inside
+    err5, tol5 = check_near_plain(f"fused {pname}", k5.fused(*fwd), want5)
+    # the same reference formulation in fp32, for the record
+    ref32 = reference.fused_mm_raw(tiled.fwd_mm.edge_rows(), graph.col[:n],
+                                   graph.value[:n], graph.deg, x, y, r, op)
+    ref32_err = float((ref32 - want5).abs().max())
+    del want5, ref32
+    passes = [(tiled.bwd_mm, graph.csc_col, graph.csc_value, x, y, g, op,
+               True)]
+    if op.vop is not VectorOp.COPY_RHS:
+        passes.insert(0, (tiled.fwd_mm, graph.col, graph.value, x, y, g, op,
+                          False))
+    err6 = tol6 = 0.0
+    for args in passes:
+        e, t = check_near_plain(f"fused_bwd {pname} pass "
+                                f"{'B' if args[-1] else 'A'}",
+                                k6.fused_bwd(*args), k6.fused_bwd_plain(*args))
+        err6, tol6 = max(err6, e), max(tol6, t)
+
+    def bwd():
+        for args in passes:
+            k6.fused_bwd(*args)
+
+    def bwd_plain():
+        for args in passes:
+            k6.fused_bwd_plain(*args)
+
+    rows, cols = used(graph.row[:n]), used(graph.col[:n])
+    needs_x = op.vop is not VectorOp.COPY_RHS
+    seg = (2 * tiled.fwd_mm.nseg + 1) * 4 + tiled.fwd_mm.nseg * 4
+    seg_t = (2 * tiled.bwd_mm.nseg + 1) * 4 + tiled.bwd_mm.nseg * 4
+    fwd_bytes = (seg + n * 8 + (r * 4 if op.vsc is ScaleOp.MEAN else 0)
+                 + (rows * k * 4 if needs_x else 0) + cols * k * 4
+                 + r * k * 4)
+    pass_a = seg + n * 8 + 2 * rows * k * 4 + cols * k * 4 + r * k * 4
+    pass_b = seg_t + n * 8 + cols * k * 4 + 2 * rows * k * 4 + c * k * 4
+    lib_ms = None
+    if op.vop is VectorOp.COPY_RHS and op.vsc is ScaleOp.MEAN:
+        mean_vals = (graph.value[:n]
+                     / graph.deg.clamp(min=1.0)[graph.row[:n].long()])
+        lib = csr(graph.rowptr, graph.col[:n], mean_vals, graph.shape)
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(lib, y))
+    out = [dict(kernel="fused", graph="rmat", case=pname, k=k,
+                max_abs_err=err5, tol=tol5, ref32_err=ref32_err,
+                ms=cuda_ms(lambda: k5.fused(*fwd)),
+                plain_ms=cuda_ms(lambda: k5.fused_plain(*fwd), iters=5),
+                library_ms=lib_ms,
+                bound=bound_ms(fwd_bytes, fused_ops_per_edge_feature(
+                    op, False) * n * k, FP32_FLOPS)),
+           dict(kernel="fused_bwd", graph="rmat", case=pname, k=k,
+                passes=len(passes), max_abs_err=err6, tol=tol6,
+                ms=cuda_ms(bwd), plain_ms=cuda_ms(bwd_plain, iters=5),
+                library_ms=None,
+                bound=bound_ms(
+                    pass_b + (pass_a if needs_x else 0),
+                    len(passes) * fused_ops_per_edge_feature(op, True)
+                    * n * k, FP32_FLOPS))]
+    return out
+
+
+def fused_train(op, graph, x0, y0, steps):
+    """``steps`` Adam steps (lr 0.01) on x and y with bench_fused.py's loss
+    through ``fused_mm``; returns the losses, the step-0 gradients, the
+    final x, y and the mean step time after the first (CUDA events)."""
+    from isplib_tpu_torch import fused_mm
+
+    x = x0.clone().requires_grad_(True)
+    y = y0.clone().requires_grad_(True)
+    opt = torch.optim.Adam([x, y], lr=0.01)
+    losses, grads0 = [], None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(steps):
+        if i == 1:
+            start.record()
+        opt.zero_grad(set_to_none=True)
+        loss = 0.5e-6 * (fused_mm(graph, x, y, op) ** 2).sum()
+        loss.backward()
+        if i == 0:
+            grads0 = (x.grad.clone(), y.grad.clone())
+        opt.step()
+        losses.append(loss.item())
+    end.record()
+    end.synchronize()
+    return (losses, grads0, x.detach(), y.detach(),
+            start.elapsed_time(end) / max(steps - 1, 1))
+
+
 def profile_epochs(model, graph, arrays, epochs: int = 5):
     """Where an epoch's time goes: ``torch.profiler`` over ``epochs`` more
-    training epochs (after one untimed), returning the profiled epoch time
-    on CUDA events, the device's busy time per epoch (kernels, copies and
-    sets; annotation ranges excluded) and the busy time per kernel name."""
-    from torch.profiler import ProfilerActivity, profile
-
+    training epochs (after one untimed); see :func:`profile_steps`."""
     from isplib_tpu_torch.train.loop import _loss_fn
 
     x = torch.from_numpy(arrays["x"]).cuda()
@@ -329,6 +513,16 @@ def profile_epochs(model, graph, arrays, epochs: int = 5):
         opt.zero_grad(set_to_none=True)
         _loss_fn(model(graph, x), y, mask).backward()
         opt.step()
+
+    return profile_steps(step, epochs)
+
+
+def profile_steps(step, epochs: int = 5):
+    """``torch.profiler`` over ``epochs`` calls of ``step`` (after one
+    untimed), returning the profiled step time on CUDA events, the
+    device's busy time per step (kernels, copies and sets; annotation
+    ranges excluded) and the busy time per kernel name."""
+    from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize()
@@ -351,6 +545,171 @@ def profile_epochs(model, graph, arrays, epochs: int = 5):
             per_epoch)
 
 
+def fused_paths(graphs, cases, drive, gen):
+    """Phase 7: K4, K5 and K6 against their plain versions and timed, then
+    the FusedMM path, the SDDMM path and the fused max route.  Appends the
+    kernel cases to ``cases``; returns the launches of the FusedMM paths
+    (summed over both pipelines) and of the SDDMM path."""
+    import dataclasses
+
+    from isplib_tpu_torch import (FusedOp, Reduce, ReduceOp, ScalarOp,
+                                  ScaleOp, VectorOp, build_tiling, fused_mm,
+                                  graph_from_arrays, sddmm, spmm)
+    from isplib_tpu_torch.data import gen_rmat_graph
+    from isplib_tpu_torch.ops import reference
+
+    t0 = time.perf_counter()
+    g = graph_from_arrays(gen_rmat_graph(RMAT_NODES, RMAT_EDGES, SEED,
+                                         EDGE_MULTIPLE), "cuda")
+    tiled = build_tiling(g)
+    torch.cuda.synchronize()
+    log(f"rmat (bench_fused.py's graph): {g.num_rows} nodes, {g.nnz} edges, "
+        f"max degree {int(g.deg.max())}; {tiled.fwd_mm.nseg} segments "
+        f"({tiled.fwd_mm.nsplit} split rows), Aᵀ {tiled.bwd_mm.nseg} "
+        f"({tiled.bwd_mm.nsplit}); {time.perf_counter() - t0:.1f}s")
+
+    # ---- the kernels against their plain versions, and their times ------
+    for name, (gg, tt) in (("rmat", (g, tiled)),
+                           ("density-rep", graphs["density-rep"][1:])):
+        for k in SDDMM_KS:
+            r = check_and_time_sddmm(name, gg, tt, k, gen)
+            cases.append(r)
+            log(f"sddmm {name:11s} K={k}: {r['ms']:.4f} ms (plain "
+                f"{r['plain_ms']:.3f}, library sampled_addmm "
+                f"{r['library_ms']:.4f} with max err {r['lib_err']:.3g}, "
+                f"bound {r['bound'][0]:.4f} by {r['bound'][1]}), err "
+                f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}")
+    pipelines = {
+        "sigmoid-embed": FusedOp(VectorOp.MUL, ReduceOp.DOT,
+                                 ScalarOp.SIGMOID, ScaleOp.MUL, Reduce.SUM),
+        "tdist-force": FusedOp(VectorOp.SUB, ReduceOp.NORM2, ScalarOp.TDIST,
+                               ScaleOp.MUL, Reduce.SUM),
+        "copy_rhs-mean": FusedOp.spmm("mean")}
+    for pname, op in pipelines.items():
+        for r in check_and_time_fused(pname, op, g, tiled, FUSED_K, gen):
+            cases.append(r)
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+            log(f"{r['kernel']:9s} {pname:13s} K={FUSED_K}: {r['ms']:.4f} ms "
+                f"(plain {r['plain_ms']:.3f}, library {lib}, bound "
+                f"{r['bound'][0]:.4f} by {r['bound'][1]}), err "
+                f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}"
+                + (f"; the fp32 reference formulation {r['ref32_err']:.3g} "
+                   "from the float64 plain version" if "ref32_err" in r
+                   else ""))
+
+    # ---- the FusedMM path: bench_fused.py's two SOP pipelines -------------
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(rng.normal(size=(RMAT_NODES, FUSED_K)).astype(
+        np.float32)).cuda()
+    y0 = torch.from_numpy(rng.normal(size=(RMAT_NODES, FUSED_K)).astype(
+        np.float32)).cuda()
+    fused_launches = {}
+    for pname in ("sigmoid-embed", "tdist-force"):
+        op = pipelines[pname]
+        (losses, grads0, x, y, step_ms), launches = drive(
+            f"FusedMM {pname} path", ("fused", "fused_bwd"),
+            lambda op=op: fused_train(op, tiled, x0, y0, FUSED_STEPS))
+        for kname, count in launches.items():
+            fused_launches[kname] = fused_launches.get(kname, 0) + count
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"FusedMM {pname}: loss {losses}")
+        # the plain path: step 0's gradients (in float64, the oracle: the
+        # fp32 plain path's scatter over hub rows strays by ~1e-4 of the
+        # scale, logged beside), a timed step, the final loss
+        plain_grads = []
+        for dtype in (torch.float64, torch.float32):
+            xp = x0.to(dtype, copy=True).requires_grad_(True)
+            yp = y0.to(dtype, copy=True).requires_grad_(True)
+            (0.5e-6 * (fused_mm(g, xp, yp, op) ** 2).sum()).backward()
+            plain_grads.append((xp.grad, yp.grad))
+        for i, side in enumerate("xy"):
+            exact = plain_grads[0][i]
+            err, tol = check_near_plain(
+                f"FusedMM {pname} step-0 grad_{side}", grads0[i].double(),
+                exact)
+            log(f"FusedMM {pname} step-0 grad_{side}: kernels {err:.3g}, "
+                f"fp32 plain path "
+                f"{float((plain_grads[1][i].double() - exact).abs().max()):.3g}"
+                f" from the float64 plain path (tolerance {tol:.3g})")
+        del plain_grads
+        plain_step_ms = fused_train(op, g, x0, y0, 3)[4]
+        with torch.no_grad():
+            l_kernel = float(0.5e-6 * (fused_mm(tiled, x, y, op) ** 2).sum())
+            l_plain = float(0.5e-6 * (fused_mm(g, x, y, op) ** 2).sum())
+        if not abs(l_kernel - l_plain) <= 1e-4 * abs(l_plain):
+            raise AssertionError(f"FusedMM {pname}: final loss through the "
+                                 f"kernels {l_kernel} vs plain {l_plain}")
+        xq, yq = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        opt = torch.optim.Adam([xq, yq], lr=0.01)
+
+        def step(op=op, xq=xq, yq=yq, opt=opt):
+            opt.zero_grad(set_to_none=True)
+            (0.5e-6 * (fused_mm(tiled, xq, yq, op) ** 2).sum()).backward()
+            opt.step()
+
+        prof_ms, busy_ms, per_kernel = profile_steps(step)
+        idle = 1.0 - busy_ms / step_ms
+        log(f"FusedMM {pname}: loss {losses[0]:.6g} -> {losses[-1]:.6g} in "
+            f"{FUSED_STEPS} Adam steps; step {step_ms:.3f} ms through the "
+            f"kernels, {plain_step_ms:.3f} ms plain; final loss kernels "
+            f"{l_kernel:.7g}, plain {l_plain:.7g}; profile: device busy "
+            f"{busy_ms:.3f} ms per step, idle {100 * idle:.1f}% (profiled "
+            f"step {prof_ms:.3f} ms); "
+            + "; ".join(f"{kn[:48]} {v:.3f}"
+                        for kn, v in list(per_kernel.items())[:6]))
+
+    # ---- the SDDMM path: spmm's grad_value and the public sddmm -----------
+    _, gd, td = graphs["density-rep"]
+    xs = torch.randn(gd.num_cols, FUSED_K, device=gen.device, generator=gen)
+    ws = torch.randn(gd.num_rows, FUSED_K, device=gen.device, generator=gen)
+    a = torch.randn(gd.num_rows, FUSED_K, device=gen.device, generator=gen)
+    b = torch.randn(gd.num_cols, FUSED_K, device=gen.device, generator=gen)
+    we = torch.randn(gd.nnz_padded, device=gen.device, generator=gen)
+
+    def sddmm_path():
+        v = gd.value.clone().requires_grad_(True)
+        (spmm(dataclasses.replace(td, graph=gd.with_value(v)), xs, "sum")
+         * ws).sum().backward()
+        at, bt = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        s = sddmm(td, at, bt)
+        (s * we).sum().backward()
+        return v.grad, s.detach(), at.grad, bt.grad
+
+    (gv, s, ga, gb), sddmm_launches = drive("SDDMM path", ("sddmm",),
+                                            sddmm_path)
+    n = gd.nnz
+    want_gv = reference.sddmm_dot_raw(gd.row, gd.col, ws, xs)
+    want_gv[n:] = 0
+    check_near_plain("SDDMM path grad_value", gv, want_gv)
+    at, bt = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    want_s = sddmm(gd, at, bt)
+    (want_s * we).sum().backward()
+    check_near_plain("SDDMM path sddmm", s, want_s.detach())
+    check_near_plain("SDDMM path sddmm grad_a", ga, at.grad)
+    check_near_plain("SDDMM path sddmm grad_b", gb, bt.grad)
+    log(f"SDDMM path: grad_value and sddmm forward and backward agree "
+        f"with the plain formula on density-rep ({n} edges)")
+
+    # ---- the fused max route (K3) ------------------------------------------
+    op = FusedOp(VectorOp.COPY_RHS, ReduceOp.NOOP, None, ScaleOp.MUL,
+                 Reduce.MAX)
+
+    def max_route(graph):
+        y = y0.clone().requires_grad_(True)
+        out = fused_mm(graph, x0, y, op)
+        (out ** 2).sum().backward()
+        return out.detach(), y.grad
+
+    (out, gy), _ = drive("fused max route", ("spmm_minmax_v4",),
+                         lambda: max_route(tiled))
+    want, want_gy = max_route(g)
+    check_near_plain("fused max route", out, want)
+    check_near_plain("fused max route grad_y", gy, want_gy)
+    log("fused max route: out and grad_y agree with the plain path")
+    return fused_launches, sddmm_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -360,7 +719,8 @@ def main() -> int:
     from isplib_tpu_torch import (GCN, GIN, GraphSAGE, graph_from_arrays,
                                   run_model, train_node_classifier)
     from isplib_tpu_torch.data import NodeDataset, gen_gcnsig_graph
-    from isplib_tpu_torch.kernels import (build, spmm_bsr, spmm_minmax_v4,
+    from isplib_tpu_torch.kernels import (build, fused, fused_bwd, sddmm,
+                                          spmm_bsr, spmm_minmax_v4,
                                           spmm_stream)
     from isplib_tpu_torch.sparse.tiling import auto_tile
     from isplib_tpu_torch.train.loop import _loss_fn
@@ -441,7 +801,8 @@ def main() -> int:
 
     # ---- the paths ---------------------------------------------------------
     kernels = {"spmm_bsr": spmm_bsr, "spmm_stream": spmm_stream,
-               "spmm_minmax_v4": spmm_minmax_v4}
+               "spmm_minmax_v4": spmm_minmax_v4, "sddmm": sddmm,
+               "fused": fused, "fused_bwd": fused_bwd}
 
     def drive(path, needs, fn):
         """Run ``fn`` with every launch count set to 0 just before it and
@@ -554,6 +915,9 @@ def main() -> int:
                 f"{prof_ms:.3f} ms); "
                 + "; ".join(f"{k[:48]} {v:.3f}" for k, v in top))
 
+    # ---- SDDMM and FusedMM (K4, K5, K6) ------------------------------------
+    fused_launches, sddmm_launches = fused_paths(graphs, cases, drive, gen)
+
     # ---- the kernel table, each kernel at K = 32 forward on the graph whose
     # edges it carries: the dense blocks of reddit-sim, the residual edges
     # of the density-representative graph, all edges for max/min (on the
@@ -568,12 +932,24 @@ def main() -> int:
            "spmm_minmax_v4": (
                "isplib_tpu_torch/kernels/csrc/spmm_minmax_v4.cu",
                "isplib_tpu/kernels/spmm_minmax_v4.py:50", "density-rep",
-               sage_launches)}
+               sage_launches),
+           # K4 on the SDDMM path's graph; K5, K6 on the sigmoid embedding
+           # kernel (both passes of K6 in one time)
+           "sddmm": ("isplib_tpu_torch/kernels/csrc/sddmm.cu",
+                     "isplib_tpu/kernels/sddmm_pallas.py:47", "density-rep",
+                     sddmm_launches),
+           "fused": ("isplib_tpu_torch/kernels/csrc/fused.cu",
+                     "isplib_tpu/kernels/fused_pallas.py:49", "rmat",
+                     fused_launches),
+           "fused_bwd": ("isplib_tpu_torch/kernels/csrc/fused_bwd.cu",
+                         "isplib_tpu/kernels/fused_pallas_bwd.py:61", "rmat",
+                         fused_launches)}
     table = []
     for kname, (source, replaces, gname, launches) in src.items():
         row = next(r for r in cases if r["kernel"] == kname
                    and r["graph"] == gname and r.get("direction", "fwd")
                    == "fwd" and r.get("reduce", "max") == "max"
+                   and r.get("case", "dot") in ("dot", "sigmoid-embed")
                    and r["k"] == 32)
         table.append({
             "name": kname, "route": "cuda", "source": source,

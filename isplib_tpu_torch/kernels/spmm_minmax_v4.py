@@ -70,8 +70,7 @@ def spmm_minmax_v4_plain(plan: MinMaxPlan, col: torch.Tensor,
                      device=x.device)
     if nnz == 0:
         return out, arg
-    row = torch.repeat_interleave(plan.seg_row.long(),
-                                  plan.seg_ptr.diff().long())
+    row = plan.edge_rows()
     col, value = col[:nnz].long(), value[:nnz]
     eids = torch.arange(nnz, device=x.device)[:, None]
     for feats in _chunks(nnz, k, _ARG_EDGE_FEATURE_BYTES):

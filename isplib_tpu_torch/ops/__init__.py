@@ -1,5 +1,9 @@
-from .semiring import Reduce
+from .semiring import (FusedOp, Reduce, ReduceOp, ScalarOp, ScaleOp,
+                       VectorOp)
 from . import reference
-from .spmm import SpMM, spmm
+from .spmm import SDDMM, SpMM, sddmm, spmm
+from .fused import FusedMM, fused_mm, fused_mm_edges
 
-__all__ = ["Reduce", "reference", "SpMM", "spmm"]
+__all__ = ["Reduce", "VectorOp", "ReduceOp", "ScalarOp", "ScaleOp",
+           "FusedOp", "reference", "SpMM", "spmm", "SDDMM", "sddmm",
+           "FusedMM", "fused_mm", "fused_mm_edges"]

@@ -1,11 +1,16 @@
-"""Plain PyTorch SpMM / SDDMM: the port's oracle and small-graph path.
+"""Plain PyTorch SpMM / SDDMM / FusedMM: the port's oracle and small-graph
+path.
 
-Counterpart of ``isplib_tpu.ops.xla_backend``, written with ``index_select``,
-``index_add_`` and ``scatter_reduce_`` on the padded COO arrays of a
+Counterpart of ``isplib_tpu.ops.xla_backend`` and of the XLA formulation of
+``isplib_tpu.ops.fused`` (``_vop``, ``_rop``, ``_edge_scalars``,
+``_fused_mm_xla``), written with ``index_select``, ``index_add`` and
+``scatter_reduce`` on the padded COO arrays of a
 :class:`~isplib_tpu_torch.sparse.graph.CSRGraph`:
 
   out[r] = reduce_{e : row[e]==r} value[e] * x[col[e]]        (sum/max/min)
   out[r] = (1/max(deg[r],1)) * sum_{e} value[e] * x[col[e]]   (mean)
+  fused:   out[r] = aop_{e : row[e]==r} s_e * VOP(x[r], y[col[e]])
+           s_e = VSC(SOP(ROP(VOP(x[r], y[col[e]]))))
 
 Empty rows give 0 for max/min, with arg ``nnz_padded - 1`` (a pad edge), and
 arg ties go to the lowest edge id.  A max/min of zeros is +0.0 whatever
@@ -18,17 +23,19 @@ Features are independent, so both SpMMs run over chunks of features whose
 5.7M edges the unchunked arg path would hold about 55 GB at once.  A graph
 whose temporaries fit runs in one pass.  Each output element is computed by
 the same operations in the same order as without chunks, so the results are
-the same bit for bit.
+the same bit for bit.  The SDDMM and the fused pipeline's ROP sum over the
+features, so there a graph that needs chunks adds the chunks' partial sums.
+The fused functions are differentiable by torch autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .semiring import Reduce
+from .semiring import FusedOp, Reduce, ReduceOp, ScaleOp, VectorOp
 
 __all__ = ["spmm_raw", "spmm_arg_raw", "sddmm_dot_raw", "gather_rows",
-           "CHUNK_BYTES"]
+           "vop_apply", "fused_edge_scalars", "fused_mm_raw", "CHUNK_BYTES"]
 
 CHUNK_BYTES = 2 << 30  # bytes of per-edge temporaries one chunk may take
 # temporaries per edge and feature: the gathered x rows and their products
@@ -36,6 +43,9 @@ _SUM_EDGE_FEATURE_BYTES = 8
 # the arg path's: products, their compared copy, the tie mask and two int64
 # id tensors
 _ARG_EDGE_FEATURE_BYTES = 32
+# the fused pipeline's: the two gathered rows, the VOP vector, its ROP
+# product and the contribution (and the SDDMM's two rows and product)
+_FUSED_EDGE_FEATURE_BYTES = 20
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -141,4 +151,98 @@ def sddmm_dot_raw(
 ) -> torch.Tensor:
     """Per-edge dot product ``out[e] = <a[row[e]], b[col[e]]>``; pad edges
     address the phantom zero rows and give 0."""
-    return (gather_rows(a, row) * gather_rows(b, col)).sum(dim=-1)
+    out = a.new_zeros(col.shape[0])
+    for feats in _chunks(col.shape[0], a.shape[1], _FUSED_EDGE_FEATURE_BYTES):
+        out = out + (gather_rows(a[:, feats], row)
+                     * gather_rows(b[:, feats], col)).sum(dim=-1)
+    return out
+
+
+def vop_apply(vop: VectorOp, xv: torch.Tensor,
+              yv: torch.Tensor) -> torch.Tensor:
+    """The VOP stage on gathered rows; the side it does not read may be
+    None."""
+    if vop is VectorOp.COPY_RHS:
+        return yv
+    if vop is VectorOp.COPY_LHS:
+        return xv
+    if vop is VectorOp.ADD:
+        return xv + yv
+    if vop is VectorOp.SUB:
+        return xv - yv
+    if vop is VectorOp.MUL:
+        return xv * yv
+    if vop is VectorOp.MAX:
+        return torch.maximum(xv, yv)
+    if vop is VectorOp.MIN:
+        return torch.minimum(xv, yv)
+    raise ValueError(vop)
+
+
+def edge_vectors(row, col, x, y, vop: VectorOp, feats: slice):
+    """(x[row], y[col], VOP of the two) for the features ``feats`` of every
+    edge; a side the VOP does not read is None."""
+    xv = (None if vop is VectorOp.COPY_RHS
+          else gather_rows(x[:, feats], row))
+    yv = (None if vop is VectorOp.COPY_LHS
+          else gather_rows(y[:, feats], col))
+    return xv, yv, vop_apply(vop, xv, yv)
+
+
+def rop_sum(rop: ReduceOp, row, col, x, y, vop: VectorOp):
+    """The ROP stage, ``t_e`` (E,), summed over feature chunks; None for
+    NOOP."""
+    if rop is ReduceOp.NOOP:
+        return None
+    if rop not in (ReduceOp.DOT, ReduceOp.NORM2):
+        raise ValueError(rop)
+    t = y.new_zeros(col.shape[0])
+    for feats in _chunks(col.shape[0], y.shape[1], _FUSED_EDGE_FEATURE_BYTES):
+        v = edge_vectors(row, col, x, y, vop, feats)[2]
+        t = t + (v if rop is ReduceOp.DOT else v * v).sum(dim=-1)
+    return t
+
+
+def row_degree(deg: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """``max(deg[row], 1)`` per edge; the pad row reads 1."""
+    return torch.cat([deg.clamp(min=1.0), deg.new_ones(1)]).index_select(
+        0, row)
+
+
+def fused_edge_scalars(row, col, value, deg, x, y,
+                       op: FusedOp) -> torch.Tensor:
+    """Per-edge scalars ``s_e`` (E,) of the pipeline, on padded or unpadded
+    edge arrays; pad edges are not masked.  ROP = NOOP feeds t = 1 into
+    the SOP."""
+    t = rop_sum(op.rop, row, col, x, y, op.vop)
+    if op.sop is not None:
+        t = op.sop(t if t is not None else y.new_ones(col.shape[0]))
+    s = t if t is not None else y.new_ones(col.shape[0])
+    if op.vsc is ScaleOp.MUL:
+        s = s * value
+    elif op.vsc is ScaleOp.MEAN:
+        s = s * value / row_degree(deg, row)
+    return s
+
+
+def fused_mm_raw(row, col, value, deg, x, y, num_rows: int,
+                 op: FusedOp) -> torch.Tensor:
+    """The whole pipeline: ``out[r] = aop_e s_e * VOP(x[r], y[col e])``,
+    (num_rows, K).  Max/min of an empty row give 0."""
+    s = fused_edge_scalars(row, col, value, deg, x, y, op)
+    outs = []
+    for feats in _chunks(col.shape[0], y.shape[1], _FUSED_EDGE_FEATURE_BYTES):
+        v = edge_vectors(row, col, x, y, op.vop, feats)[2]
+        contrib = s[:, None].to(v.dtype) * v
+        zero = contrib.new_zeros(num_rows + 1, contrib.shape[1])
+        if op.aop is Reduce.SUM:
+            out = zero.index_add(0, row, contrib)
+        elif op.aop in (Reduce.MAX, Reduce.MIN):
+            out = zero.scatter_reduce(
+                0, row.long()[:, None].expand_as(contrib), contrib,
+                "amax" if op.aop is Reduce.MAX else "amin",
+                include_self=False)
+        else:
+            raise ValueError(op.aop)
+        outs.append(out[:num_rows])
+    return torch.cat(outs, dim=1) if outs else y.new_zeros(num_rows, 0)

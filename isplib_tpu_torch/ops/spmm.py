@@ -1,4 +1,4 @@
-"""The public SpMM op with its autograd, the counterpart of
+"""The public SpMM and SDDMM ops with their autograd, the counterpart of
 ``isplib_tpu.ops.spmm``.
 
 Backward formulas (as in the JAX package):
@@ -11,21 +11,28 @@ On a TiledGraph, sum and mean run the hybrid CUDA kernels forward and, for
 ``grad_x``, over the transpose plan; max and min run the max/min kernel
 (K3) over the ``fwd_mm`` plan, which also returns the winning edge ids.  A
 plain CSRGraph runs the reference path on any device, as the JAX package
-runs XLA there.  ``grad_v`` (the SDDMM, K4 in ``ROADMAP.md``) is the plain
-formula and is computed only when the edge values require a gradient.  Pad
-edges never get a gradient.
+runs XLA there.  ``grad_v`` of sum/mean (an SDDMM) runs the SDDMM kernel
+(K4) over the ``fwd_mm`` work list on a TiledGraph and the plain formula on
+a CSRGraph; it is computed only when the edge values require a gradient.
+Pad edges never get a gradient.
+
+``sddmm(graph, a, b)`` is the per-edge ``<a[row e], b[col e]>``: K4 forward
+on a TiledGraph, the plain formula on a CSRGraph; its backward is the two
+plain SpMMs with the cotangent as edge values, as the JAX package spells
+them outside any kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels import sddmm as k4
 from ..kernels import spmm_hybrid, spmm_minmax_v4
 from ..sparse.tiling import TiledGraph, base_graph
 from . import reference
 from .semiring import Reduce
 
-__all__ = ["SpMM", "spmm"]
+__all__ = ["SpMM", "spmm", "SDDMM", "sddmm"]
 
 _BACKENDS = ("auto", "reference")
 
@@ -82,7 +89,10 @@ class SpMM(torch.autograd.Function):
                     base.csc_row, base.csc_col,
                     value.index_select(0, base.csc2csr), base.deg_t, g_eff,
                     base.num_cols, Reduce.SUM)
-            if need_v:
+            if need_v and ctx.tiled:
+                grad_v = k4.sddmm(ctx.graph.fwd_mm, base.col,
+                                  g_eff.contiguous(), x.contiguous())
+            elif need_v:
                 grad_v = reference.sddmm_dot_raw(base.row, base.col, g_eff, x)
         else:
             # The cotangent routes through the winning edge of each (row,
@@ -126,3 +136,46 @@ def spmm(graph, x: torch.Tensor, reduce: str | Reduce = "sum",
                          f"{backend!r}")
     return SpMM.apply(graph, Reduce.of(reduce), backend, x,
                       base_graph(graph).value)
+
+
+class SDDMM(torch.autograd.Function):
+    """``out[e] = <a[row e], b[col e]>`` (nnz_padded,), pads 0,
+    differentiable in ``a`` and ``b``."""
+
+    @staticmethod
+    def forward(ctx, graph, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        base = base_graph(graph)
+        if isinstance(graph, TiledGraph):
+            out = k4.sddmm(graph.fwd_mm, base.col, a.contiguous(),
+                           b.contiguous())
+        else:
+            out = reference.sddmm_dot_raw(base.row, base.col, a, b)
+        ctx.graph = graph
+        ctx.save_for_backward(a, b)
+        return out
+
+    @staticmethod
+    def backward(ctx, gbar: torch.Tensor):
+        a, b = ctx.saved_tensors
+        base = base_graph(ctx.graph)
+        gbar = gbar.clone()
+        gbar[base.nnz:] = 0
+        grad_a = grad_b = None
+        if ctx.needs_input_grad[1]:
+            grad_a = reference.spmm_raw(base.row, base.col, gbar, base.deg, b,
+                                        base.num_rows, Reduce.SUM)
+        if ctx.needs_input_grad[2]:
+            grad_b = reference.spmm_raw(
+                base.csc_row, base.csc_col, gbar.index_select(0, base.csc2csr),
+                base.deg_t, a, base.num_cols, Reduce.SUM)
+        return None, grad_a, grad_b
+
+
+def sddmm(graph, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sampled dense-dense matmul: per-edge ``<a[row[e]], b[col[e]]>``.
+
+    Returns a (nnz_padded,) vector in CSR edge order (pad entries 0);
+    combine with ``graph.with_value`` for attention-style edge weights.
+    a: (R, K), b: (C, K).  A TiledGraph runs the SDDMM kernel (K4).
+    """
+    return SDDMM.apply(graph, a, b)

@@ -2,7 +2,9 @@
 
 Counterpart of ``isplib_tpu.sparse.tiling_v4mm`` (``MinMaxTrainPlan``,
 ``build_minmax_stripes``), laid out for ``kernels/csrc/spmm_minmax_v4.cu``
-rather than for the TPU.  The kernel reads the graph's ``col`` and ``value``
+rather than for the TPU.  The same work list drives the SDDMM and FusedMM
+kernels (``sddmm.cu``, ``fused.cu``, ``fused_bwd.cu``); built over the CSC
+it walks the rows of Aᵀ.  The kernel reads the graph's ``col`` and ``value``
 directly, and an edge's CSR position is its edge id (the id the reference's
 ``spmm_arg_raw`` returns), so the plan holds no copy of the edges.  The JAX
 plan's class depths, trains, lane groups, segment bitmasks, scatter sources,
@@ -52,6 +54,12 @@ class MinMaxPlan:
     @property
     def nsplit(self) -> int:
         return int(self.split_rows.shape[0])
+
+    def edge_rows(self) -> torch.Tensor:
+        """The row of each of the ``nnz`` edges, int64 (the plain
+        versions' COO view of the list)."""
+        return torch.repeat_interleave(self.seg_row.long(),
+                                       self.seg_ptr.diff().long())
 
 
 def build_minmax_plan(rowptr: np.ndarray, num_rows: int, num_cols: int,

@@ -14,8 +14,10 @@ import pytest
 import torch
 
 import isplib_tpu_torch as pt
-from isplib_tpu_torch.kernels import (build, spmm_bsr, spmm_minmax_v4,
-                                      spmm_stream)
+from isplib_tpu_torch.kernels import (build, fused, fused_bwd, sddmm,
+                                      spmm_bsr, spmm_minmax_v4, spmm_stream)
+from isplib_tpu_torch.ops.semiring import (FusedOp, Reduce, ReduceOp,
+                                           ScalarOp, ScaleOp, VectorOp)
 from isplib_tpu_torch.sparse.tiling import build_tiling
 from isplib_tpu_torch.sparse.tiling_v5 import SEG_EDGES
 
@@ -114,7 +116,8 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 def test_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert names == ["spmm_bsr.cu", "spmm_minmax_v4.cu", "spmm_stream.cu"]
+    assert names == ["fused.cu", "fused_bwd.cu", "sddmm.cu", "spmm_bsr.cu",
+                     "spmm_minmax_v4.cu", "spmm_stream.cu"]
 
 
 @pytest.fixture
@@ -204,3 +207,102 @@ def test_minmax_spmm_on_cuda_runs_the_kernel(cuda, reduce):
     want = pt.spmm(g, x, reduce)
     assert spmm_minmax_v4.LAUNCHES == before + 1
     assert torch.equal(got, want)
+
+
+def hub_rows_and_cols(device, num_rows=1200, num_cols=1100, nnz=20000):
+    """Hub rows (0, 1) and hub columns (0, 1) of many segments each, so
+    both work lists have split rows, and empty rows (the last 50)."""
+    rng = np.random.default_rng(2)
+    row = rng.integers(0, num_rows - 50, nnz)
+    col = rng.integers(0, num_cols, nnz)
+    row[rng.random(nnz) < 0.2] = rng.integers(0, 2)
+    col[rng.random(nnz) < 0.2] = rng.integers(0, 2)
+    val = rng.normal(size=nnz).astype(np.float32)
+    return pt.from_edge_index(np.stack([col, row]), num_nodes=num_rows,
+                              num_src_nodes=num_cols, edge_value=val,
+                              edge_multiple=128, device=device)
+
+
+def assert_near_plain(got, want):
+    """fp32 on both sides, only the sum order differs."""
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 32, 41, 130, 300])
+def test_sddmm_kernel_matches_plain_version(cuda, k):
+    g = hub_rows_and_cols(cuda)
+    plan = build_tiling(g).fwd_mm
+    assert plan.nsplit > 0
+    a = torch.randn(g.num_rows, k, device=cuda)
+    b = torch.randn(g.num_cols, k, device=cuda)
+    before = sddmm.LAUNCHES
+    got = sddmm.sddmm(plan, g.col, a, b)
+    want = sddmm.sddmm_plain(plan, g.col, a, b)
+    torch.cuda.synchronize()
+    assert sddmm.LAUNCHES == before + 1
+    assert_near_plain(got, want)
+    assert not bool(got[g.nnz:].any())
+
+
+FUSED_OPS = [
+    FusedOp(VectorOp.MUL, ReduceOp.DOT, ScalarOp.SIGMOID, ScaleOp.MUL),
+    FusedOp(VectorOp.SUB, ReduceOp.NORM2, ScalarOp.TDIST, ScaleOp.MUL),
+    FusedOp.spmm("mean"),
+    FusedOp.sddmm_dot(),
+    FusedOp(VectorOp.MAX, ReduceOp.NORM2, ScalarOp.SIGMOID, ScaleOp.NONE),
+    FusedOp(VectorOp.COPY_LHS, ReduceOp.NOOP, ScalarOp.TDIST, ScaleOp.MEAN),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8, 32, 41, 256])
+@pytest.mark.parametrize("op", FUSED_OPS, ids=lambda o: o.vop.value)
+def test_fused_kernels_match_plain_versions(cuda, op, k):
+    """K5 forward and both K6 passes against their plain versions."""
+    g = hub_rows_and_cols(cuda)
+    tiled = build_tiling(g)
+    assert tiled.fwd_mm.nsplit > 0 and tiled.bwd_mm.nsplit > 0
+    x = 0.5 * torch.randn(g.num_rows, k, device=cuda)
+    y = 0.5 * torch.randn(g.num_cols, k, device=cuda)
+    gr = torch.randn(g.num_rows, k, device=cuda)
+    before = (fused.LAUNCHES, fused_bwd.LAUNCHES)
+    fwd = (tiled.fwd_mm, g.col, g.value, g.deg, x, y, op)
+    assert_near_plain(fused.fused(*fwd), fused.fused_plain(*fwd))
+    for plan, col, val, pass_b in (
+            (tiled.fwd_mm, g.col, g.value, False),
+            (tiled.bwd_mm, g.csc_col, g.csc_value, True)):
+        args = (plan, col, val, x, y, gr, op, pass_b)
+        assert_near_plain(fused_bwd.fused_bwd(*args),
+                          fused_bwd.fused_bwd_plain(*args))
+    torch.cuda.synchronize()
+    assert (fused.LAUNCHES, fused_bwd.LAUNCHES) == (before[0] + 1,
+                                                    before[1] + 2)
+
+
+@pytest.mark.gpu
+def test_fused_mm_on_cuda_runs_the_kernels(cuda):
+    """A CUDA TiledGraph launches K5 forward and K6 backward and agrees
+    with the plain formulation on the CSRGraph."""
+    g = hub_rows_and_cols(cuda)
+    tiled = build_tiling(g)
+    op = FUSED_OPS[1]
+    outs, grads = [], []
+    for graph in (tiled, g):
+        x = torch.randn(g.num_rows, 32, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+        y = torch.randn(g.num_cols, 32, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(1))
+        x.requires_grad_(True)
+        y.requires_grad_(True)
+        before = (fused.LAUNCHES, fused_bwd.LAUNCHES)
+        out = pt.fused_mm(graph, x, y, op)
+        (out ** 2).sum().backward()
+        ran = (fused.LAUNCHES - before[0], fused_bwd.LAUNCHES - before[1])
+        assert ran == ((1, 2) if graph is tiled else (0, 0))
+        outs.append(out.detach())
+        grads += [x.grad, y.grad]
+    assert_near_plain(outs[0], outs[1])
+    assert_near_plain(grads[0], grads[2])
+    assert_near_plain(grads[1], grads[3])
