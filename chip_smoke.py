@@ -68,6 +68,29 @@
      backward, each against the plain formula;
    * the fused max route: ``fused_mm`` with AOP = MAX (K3), forward and
      grad against the plain path.
+8. The row-sharded path (``isplib_tpu_torch.dist``) on a 4-shard
+   ``LocalMesh``: ``partition_rows`` of reddit-sim (version 5 with the
+   max/min plans, and version 2) and of density-rep (version 5), each
+   logged with rows per shard, halo, halo fraction, build seconds and every
+   plan's bytes and fill.  K8 on shard 0's local and halo forward plans
+   at K = 32 and 602 and on its two transpose plans at K = 32 and 41
+   against its plain version (1e-4·max|plain|: fp32, atomics sum in a
+   run-to-run order) and K7 on both halves, max and min, at K = 32 and
+   602, bit for bit; each timed beside ``torch.sparse.mm`` of the same
+   edges (K8) or ``scatter_reduce_`` values only (K7) and the bound (the
+   real edges' planes, the x tile of every non-empty cell, the outputs).
+   Then the paths, 30 epochs each: GCN on the version-5 route (K1/K2, both
+   graphs) and on the version-2 route (K8), GraphSAGE-max (K7); the loss
+   falls, train accuracy above 0.7, and the trained loss on the sharded
+   graph against the unsharded TiledGraph (2e-2 relative where the
+   sharded route runs K2's bf16 blocks too, version 5; 1e-3 for the fp32
+   K8 of version 2, whose gap is K2's rounding alone; 1e-4 for max).
+   Profiles five more epochs of the sharded GCN (version 5) and
+   GraphSAGE-max on reddit-sim.  Last, the one-shard partition through a
+   one-rank ``GroupMesh`` over NCCL: sum (K1/K2), max (K7) and the
+   reference route (NCCL's all_to_all) against the unsharded kernels, and
+   its time against the unsharded hybrid SpMM (the sharded path's
+   overhead).
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line; every
@@ -710,6 +733,301 @@ def fused_paths(graphs, cases, drive, gen):
     return fused_launches, sddmm_launches
 
 
+def plan_stats(plan) -> tuple[int, float]:
+    """A shard plan's device bytes and fill: the share of real edges among
+    a v2 plan's slots, or among a hybrid plan's dense-block entries."""
+    from isplib_tpu_torch.sparse.tiling_v2 import TiledPlanV2
+    tensors = [v for v in vars(plan).values() if isinstance(v, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    if isinstance(plan, TiledPlanV2):
+        return nbytes, plan.fill
+    return nbytes, plan.dense_edges / max(plan.nb * 128 * 128, 1)
+
+
+def partition(name, arrays, tiling, shards=4, hold=None):
+    """``partition_rows`` of a graph's real edges on the card, logged (rows
+    per shard, halo, local and halo edges on stderr): halo fraction, build
+    seconds, each plan's bytes and fill."""
+    from isplib_tpu_torch.dist import partition_rows
+
+    n = int(arrays["nnz"])
+    t0 = time.perf_counter()
+    sg = partition_rows(arrays["row"][:n], arrays["col"][:n],
+                        arrays["value"][:n], int(arrays["num_rows"]), shards,
+                        verbose=True, tiling=tiling, device="cuda",
+                        hold=hold)
+    torch.cuda.synchronize()
+    log(f"partition {name} into {shards} ({tiling}): halo fraction "
+        f"{sg.halo_fraction:.4f}, {time.perf_counter() - t0:.1f}s with plans")
+    labels = ("loc fwd", "loc bwd", "halo fwd", "halo bwd")
+    for i in (sg.held if tiling is not None else ()):
+        sh = sg.shard(i)
+        named = list(zip(labels, sh.plans))
+        if sh.plans_mm is not None:
+            named += list(zip(("loc mm", "halo mm"), sh.plans_mm))
+        log(f"  shard {i}: " + ", ".join(
+            f"{lab} {b / 2**20:.1f} MiB fill {f:.3f}"
+            for lab, (b, f) in ((lab, plan_stats(p)) for lab, p in named)))
+    return sg
+
+
+def v2_bound(plan, k: int, real_edges: int, out_bytes_per: int):
+    """Bound of one v2-plan kernel call: the real edges' planes (4 B a
+    plane; the plan's pad slots and cell table are not the function's
+    work), the x tile of every non-empty cell, the (R, K) outputs of
+    ``out_bytes_per`` bytes an entry, and 2 fp32 operations per real edge
+    and feature."""
+    cells = torch.nonzero(plan.cell_starts.diff() > 0).flatten()
+    c0 = (cells % plan.nct) * plan.ct
+    tile_rows = int((plan.num_cols - c0).clamp(max=plan.ct).sum())
+    nbytes = (real_edges * plan.planes * 4 + tile_rows * k * 4
+              + plan.num_rows * k * out_bytes_per)
+    return bound_ms(nbytes, 2.0 * real_edges * k, FP32_FLOPS)
+
+
+def check_and_time_v2(name, case, plan, k, gen):
+    """K8 on one shard plan at K: against its plain version (fp32, sum
+    order only: 1e-4·max|plain|) and timed beside ``torch.sparse.mm`` of
+    the same edges and the bound."""
+    from isplib_tpu_torch.kernels import spmm_v2 as k8
+
+    x = torch.randn(plan.num_cols, k, device=gen.device, generator=gen)
+    err, tol = check_near_plain(f"spmm_v2 {name} {case} K={k}",
+                                k8.spmm_v2(plan, x), k8.spmm_v2_plain(plan, x))
+    s = plan.slots()
+    keep = s["val"] != 0
+    lib = torch.sparse_coo_tensor(
+        torch.stack([s["row"][keep], s["col"][keep]]), s["val"][keep],
+        (plan.num_rows, plan.num_cols)).coalesce().to_sparse_csr()
+    real = int(keep.sum())
+    del s, keep
+    wide = k > 64
+    return dict(kernel="spmm_v2", graph=name, case=case, k=k,
+                max_abs_err=err, tol=tol, fill=plan.fill, nc=plan.nc,
+                edges=real,
+                ms=cuda_ms(lambda: k8.spmm_v2(plan, x)),
+                plain_ms=cuda_ms(lambda: k8.spmm_v2_plain(plan, x),
+                                 iters=2 if wide else 5, warmup=1),
+                library_ms=cuda_ms(lambda: torch.sparse.mm(lib, x)),
+                bound=v2_bound(plan, k, real, 4))
+
+
+def check_and_time_v2_minmax(name, case, plan, reduce, k, gen):
+    """K7 on one shard plan at K: against its plain version bit for bit,
+    timed beside ``scatter_reduce_`` over precomputed messages (values
+    only) and the bound."""
+    from isplib_tpu_torch.kernels import spmm_minmax as k7
+
+    x = torch.randn(plan.num_cols, k, device=gen.device, generator=gen)
+    sentinel = 2**31 - 1
+
+    def kernel():
+        return k7.spmm_minmax_v2(plan, x, reduce, sentinel)
+
+    def plain():
+        return k7.spmm_minmax_v2_plain(plan, x, reduce, sentinel)
+
+    (out, arg), (pout, parg) = kernel(), plain()
+    torch.cuda.synchronize()
+    bad_bits = int((out.view(torch.int32) != pout.view(torch.int32)).sum())
+    bad_args = int((arg != parg).sum())
+    err = float((out - pout).abs().max())
+    if bad_bits or bad_args:
+        raise AssertionError(f"spmm_minmax_v2 {name} {case} {reduce} K={k}: "
+                             f"{bad_bits} values differ in their bits, "
+                             f"{bad_args} args differ (max err {err})")
+    del out, arg, pout, parg
+    s = plan.slots()
+    keep = s["eid"] >= 0
+    row, col, val = s["row"][keep], s["col"][keep], s["val"][keep]
+    del s, keep
+    msgs = val[:, None] * x.index_select(0, col)
+    idx = row[:, None].expand(-1, k)
+    lib_out = torch.zeros(plan.num_rows, k, device=x.device)
+    lib_ms = cuda_ms(lambda: lib_out.scatter_reduce_(
+        0, idx, msgs, "amax" if reduce == "max" else "amin",
+        include_self=False))
+    real = int(row.numel())
+    del msgs, idx, lib_out, row, col, val
+    wide = k > 64
+    return dict(kernel="spmm_minmax", graph=name, case=case, reduce=reduce,
+                k=k, max_abs_err=err, fill=plan.fill, nc=plan.nc,
+                edges=real,
+                ms=cuda_ms(kernel, iters=10 if wide else 30),
+                plain_ms=cuda_ms(plain, iters=2 if wide else 5, warmup=1),
+                library_ms=lib_ms, bound=v2_bound(plan, k, real, 8))
+
+
+def sharded_paths(graphs, cases, drive, train, check, unsharded, gen):
+    """Phase 8: the row-sharded path on a 4-shard LocalMesh.  Partitions
+    reddit-sim (version 5 with the max/min plans, and version 2) and
+    density-rep (version 5); holds K8 and K7 against their plain versions
+    on shard 0's local and halo plans (K8: forward and transpose) and
+    times them; trains GCN on the
+    version-5 route (K1/K2, both graphs) and on the version-2 route (K8),
+    and GraphSAGE-max (K7), 30 epochs each, against the unsharded
+    TiledGraph; then runs the one-shard partition through a one-rank
+    GroupMesh over NCCL.  Appends the kernel cases to ``cases``; returns
+    the launches of the version-5 GCN, version-2 GCN and GraphSAGE-max
+    paths."""
+    import torch.distributed as dist
+
+    from isplib_tpu_torch import GCN, GraphSAGE, spmm
+    from isplib_tpu_torch.dist import (GroupMesh, LocalMesh, set_mesh,
+                                       spmm_sharded)
+    from isplib_tpu_torch.kernels.spmm_hybrid import spmm_hybrid
+    from isplib_tpu_torch.ops import reference
+
+    rs, dr = graphs["reddit-sim"][0], graphs["density-rep"][0]
+    sharded = {
+        ("reddit-sim", 5): partition("reddit-sim", rs, {"version": 5}),
+        ("reddit-sim", 2): partition("reddit-sim", rs,
+                                     {"version": 2, "minmax": False}),
+        ("density-rep", 5): partition("density-rep", dr,
+                                      {"version": 5, "minmax": False})}
+
+    # ---- K8 and K7 against their plain versions, and their times ---------
+    sg2, sg5 = sharded[("reddit-sim", 2)], sharded[("reddit-sim", 5)]
+    loc_f, loc_b, halo_f, halo_b = sg2.plans[0]
+    for case, plan, ks in (("shard 0 loc", loc_f, (32, K_WIDE)),
+                           ("shard 0 halo", halo_f, (32, K_WIDE)),
+                           ("shard 0 loc bwd", loc_b, KS),
+                           ("shard 0 halo bwd", halo_b, KS)):
+        for k in ks:
+            r = check_and_time_v2("reddit-sim", case, plan, k, gen)
+            cases.append(r)
+            log(f"spmm_v2 reddit-sim {case} K={k}: {r['ms']:.4f} ms (plain "
+                f"{r['plain_ms']:.3f}, library {r['library_ms']:.4f}, bound "
+                f"{r['bound'][0]:.4f} by {r['bound'][1]}), err "
+                f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}; {r['edges']} "
+                f"edges in {r['nc']} chunks, fill {r['fill']:.3f}")
+    for case, plan in (("shard 0 loc", sg5.plans_mm[0][0]),
+                       ("shard 0 halo", sg5.plans_mm[0][1])):
+        for reduce in ("max", "min"):
+            for k in (32, K_WIDE):
+                r = check_and_time_v2_minmax("reddit-sim", case, plan,
+                                             reduce, k, gen)
+                cases.append(r)
+                log(f"spmm_minmax reddit-sim {case} {reduce} K={k}: "
+                    f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library "
+                    f"values-only {r['library_ms']:.4f}, bound "
+                    f"{r['bound'][0]:.4f} by {r['bound'][1]}); bit-exact; "
+                    f"{r['edges']} edges in {r['nc']} chunks, fill "
+                    f"{r['fill']:.3f}")
+
+    # ---- the sharded paths -------------------------------------------------
+    def gcn():
+        return GCN(FEATURES, hidden=32, num_classes=CLASSES, seed=0)
+
+    def sage():
+        return GraphSAGE(FEATURES, hidden=32, num_classes=CLASSES,
+                         aggr="max", seed=0)
+
+    def epochs_vs_unsharded(label, runs, base):
+        for name, _, res in runs:
+            log(f"{name} {label}: sharded epoch "
+                f"{res.train_time_avg * 1e3:.3f} ms against "
+                f"{unsharded[(base, name)].train_time_avg * 1e3:.3f} ms "
+                "unsharded")
+
+    set_mesh(LocalMesh(4))
+    try:
+        for version, names, needs, launches_of in (
+                (5, ("reddit-sim", "density-rep"), ("spmm_bsr",
+                                                    "spmm_stream"), "v5"),
+                (2, ("reddit-sim",), ("spmm_v2",), "v2")):
+            label = f"sharded GCN v{version}"
+            runs, launches = drive(
+                f"{label} path", needs, lambda names=names, version=version,
+                label=label: train(label, gcn, names, EPOCHS,
+                                   lambda n: sharded[(n, version)]))
+            # version 5's K2 rounds to bf16 in dense blocks that the shard
+            # plans pick differently from the unsharded plan; version 2's
+            # fp32 K8 differs from the unsharded K2 by that rounding alone
+            check(label, runs, "nll", 2e-2 if version == 5 else 1e-3,
+                  min_acc=0.7,
+                  graph_of=lambda n, version=version: sharded[(n, version)])
+            epochs_vs_unsharded(label, runs, "GCN")
+            if version == 5:
+                gcn_runs, v5_launches = runs, launches
+            else:
+                v2_launches = launches
+        label = "sharded GraphSAGE-max"
+        runs, mm_launches = drive(
+            f"{label} path", ("spmm_minmax",),
+            lambda: train(label, sage, ["reddit-sim"], EPOCHS,
+                          lambda n: sharded[(n, 5)]))
+        check(label, runs, "nll", 1e-4, min_acc=0.7,
+              graph_of=lambda n: sharded[(n, 5)])
+        epochs_vs_unsharded(label, runs, "GraphSAGE-max")
+        sage_runs = runs
+
+        # where a sharded epoch's time goes (reddit-sim)
+        for label, version, (name, model, res) in (
+                ("sharded GCN v5", 5, gcn_runs[0]),
+                ("sharded GraphSAGE-max", 5, sage_runs[0])):
+            prof_ms, busy_ms, per_kernel = profile_epochs(
+                model, sharded[(name, version)], graphs[name][0])
+            idle = 1.0 - busy_ms / (res.train_time_avg * 1e3)
+            log(f"{name} {label} profile: device busy {busy_ms:.3f} ms per "
+                f"epoch, idle {100 * idle:.1f}% of the "
+                f"{res.train_time_avg * 1e3:.3f} ms epoch (profiled epoch "
+                f"{prof_ms:.3f} ms); "
+                + "; ".join(f"{k[:48]} {v:.3f}"
+                            for k, v in list(per_kernel.items())[:8]))
+    finally:
+        set_mesh(None)
+
+    # ---- one rank over NCCL: the one-shard partition through GroupMesh ---
+    _, g, tiled = graphs["reddit-sim"]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        # each rank partitions and keeps its own shard
+        rank = [dist.get_rank()]
+        one = partition("reddit-sim", rs, {"version": 5}, shards=1,
+                        hold=rank)
+        one_ref = partition("reddit-sim", rs, None, shards=1, hold=rank)
+        mesh = GroupMesh()
+        x = torch.randn(g.num_rows, 32, device=gen.device, generator=gen)
+
+        def group_mesh_path():
+            return (spmm_sharded(one, x, "sum", mesh),
+                    spmm_sharded(one, x, "max", mesh),
+                    spmm_sharded(one_ref, x, "sum", mesh))
+
+        (s_sum, s_max, s_ref), _ = drive(
+            "GroupMesh(1 rank, NCCL) path", ("spmm_bsr", "spmm_minmax"),
+            group_mesh_path)
+        check_near_plain("GroupMesh sum vs the unsharded hybrid SpMM", s_sum,
+                         spmm_hybrid(tiled.fwd, x))
+        check_near_plain("GroupMesh max vs the unsharded K3", s_max,
+                         spmm(tiled, x, "max"))
+        check_near_plain("GroupMesh reference route (NCCL all_to_all) vs "
+                         "the reference path", s_ref,
+                         reference.spmm_raw(g.row, g.col, g.value, g.deg, x,
+                                            g.num_rows, "sum"))
+        ms_sharded = cuda_ms(lambda: spmm_sharded(one, x, "sum", mesh))
+        ms_plain = cuda_ms(lambda: spmm_hybrid(tiled.fwd, x))
+        ms_sharded_mm = cuda_ms(lambda: spmm_sharded(one, x, "max", mesh))
+        ms_plain_mm = cuda_ms(lambda: spmm(tiled, x, "max"))
+        log(f"GroupMesh(1 rank, NCCL), reddit-sim K=32: sharded sum "
+            f"{ms_sharded:.4f} ms against the unsharded hybrid SpMM "
+            f"{ms_plain:.4f} ms (overhead {ms_sharded - ms_plain:.4f} ms); "
+            f"sharded max (K7) {ms_sharded_mm:.4f} ms against K3 "
+            f"{ms_plain_mm:.4f} ms")
+    finally:
+        dist.destroy_process_group()
+    return v5_launches, v2_launches, mm_launches
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -720,8 +1038,9 @@ def main() -> int:
                                   run_model, train_node_classifier)
     from isplib_tpu_torch.data import NodeDataset, gen_gcnsig_graph
     from isplib_tpu_torch.kernels import (build, fused, fused_bwd, sddmm,
-                                          spmm_bsr, spmm_minmax_v4,
-                                          spmm_stream)
+                                          spmm_bsr, spmm_minmax,
+                                          spmm_minmax_v4, spmm_stream,
+                                          spmm_v2)
     from isplib_tpu_torch.sparse.tiling import auto_tile
     from isplib_tpu_torch.train.loop import _loss_fn
 
@@ -802,7 +1121,8 @@ def main() -> int:
     # ---- the paths ---------------------------------------------------------
     kernels = {"spmm_bsr": spmm_bsr, "spmm_stream": spmm_stream,
                "spmm_minmax_v4": spmm_minmax_v4, "sddmm": sddmm,
-               "fused": fused, "fused_bwd": fused_bwd}
+               "fused": fused, "fused_bwd": fused_bwd, "spmm_v2": spmm_v2,
+               "spmm_minmax": spmm_minmax}
 
     def drive(path, needs, fn):
         """Run ``fn`` with every launch count set to 0 just before it and
@@ -817,20 +1137,23 @@ def main() -> int:
                 raise AssertionError(f"{kname} never launched on {path}")
         return out, launches
 
-    def dataset(name):
+    def dataset(name, graph=None):
         arrays, _, tiled = graphs[name]
-        return NodeDataset(name=name, graph=tiled, x=arrays["x"],
+        return NodeDataset(name=name, graph=tiled if graph is None else graph,
+                           x=arrays["x"],
                            y=arrays["y"], train_mask=arrays["train_mask"],
                            val_mask=arrays["train_mask"],
                            test_mask=arrays["test_mask"],
                            num_classes=CLASSES)
 
-    def train(label, make, names, epochs):
+    def train(label, make, names, epochs, graph_of=None):
         runs = []
         for name in names:
             model = make()
             t0 = time.perf_counter()
-            res = train_node_classifier(model, dataset(name), epochs=epochs)
+            res = train_node_classifier(
+                model, dataset(name, graph_of and graph_of(name)),
+                epochs=epochs)
             wall = time.perf_counter() - t0
             runs.append((name, model, res))
             log(f"{name} {label}, {epochs} epochs:\n{res.table()}")
@@ -841,9 +1164,11 @@ def main() -> int:
                 f"{res.train_acc:.4f}, test acc {res.test_acc:.4f}")
         return runs
 
-    def check(label, runs, loss, rtol, min_acc=None):
+    def check(label, runs, loss, rtol, min_acc=None, graph_of=None):
         """Loss finite and falling, accuracy, and the trained model's loss
-        through the kernels against the reference path."""
+        through the kernels against the reference path (with ``graph_of``:
+        through the kernels on that graph against the unsharded TiledGraph's
+        kernels)."""
         for name, model, res in runs:
             if not np.all(np.isfinite(res.losses)):
                 raise AssertionError(f"{name} {label}: non-finite loss "
@@ -858,12 +1183,16 @@ def main() -> int:
             x = torch.from_numpy(arrays["x"]).cuda()
             y = torch.from_numpy(arrays["y"]).cuda()
             mask = torch.from_numpy(arrays["train_mask"]).cuda()
+            ran, ref = (tiled, g) if graph_of is None else (graph_of(name),
+                                                             tiled)
             model.eval()
             with torch.no_grad():
-                l_kernel = float(_loss_fn(model(tiled, x), y, mask, loss))
-                l_ref = float(_loss_fn(model(g, x), y, mask, loss))
+                l_kernel = float(_loss_fn(model(ran, x), y, mask, loss))
+                l_ref = float(_loss_fn(model(ref, x), y, mask, loss))
             log(f"{name} {label}: trained loss through the kernels "
-                f"{l_kernel:.7f}, reference path {l_ref:.7f}")
+                f"{l_kernel:.7f}, "
+                + (f"reference path {l_ref:.7f}" if graph_of is None else
+                   f"unsharded TiledGraph {l_ref:.7f}"))
             if not abs(l_kernel - l_ref) <= rtol * abs(l_ref):
                 raise AssertionError(f"{name} {label}: loss through the "
                                      f"kernels {l_kernel} vs reference "
@@ -918,6 +1247,13 @@ def main() -> int:
     # ---- SDDMM and FusedMM (K4, K5, K6) ------------------------------------
     fused_launches, sddmm_launches = fused_paths(graphs, cases, drive, gen)
 
+    # ---- the row-sharded path (K1/K2 per shard, K8, K7) -------------------
+    unsharded = {(label, name): res for label, runs in (
+        ("GCN", gcn_runs), ("GraphSAGE-max", sage_runs))
+        for name, _, res in runs}
+    v5_launches, v2_launches, mm_launches = sharded_paths(
+        graphs, cases, drive, train, check, unsharded, gen)
+
     # ---- the kernel table, each kernel at K = 32 forward on the graph whose
     # edges it carries: the dense blocks of reddit-sim, the residual edges
     # of the density-representative graph, all edges for max/min (on the
@@ -943,13 +1279,22 @@ def main() -> int:
                      fused_launches),
            "fused_bwd": ("isplib_tpu_torch/kernels/csrc/fused_bwd.cu",
                          "isplib_tpu/kernels/fused_pallas_bwd.py:61", "rmat",
-                         fused_launches)}
+                         fused_launches),
+           # K8 and K7 on shard 0's local plans of reddit-sim; launches from
+           # the sharded GCN (version 2) and GraphSAGE-max paths
+           "spmm_v2": ("isplib_tpu_torch/kernels/csrc/spmm_v2.cu",
+                       "isplib_tpu/kernels/spmm_pallas_v2.py:82",
+                       "reddit-sim", v2_launches),
+           "spmm_minmax": ("isplib_tpu_torch/kernels/csrc/spmm_minmax.cu",
+                           "isplib_tpu/kernels/spmm_minmax.py:77",
+                           "reddit-sim", mm_launches)}
     table = []
     for kname, (source, replaces, gname, launches) in src.items():
         row = next(r for r in cases if r["kernel"] == kname
                    and r["graph"] == gname and r.get("direction", "fwd")
                    == "fwd" and r.get("reduce", "max") == "max"
-                   and r.get("case", "dot") in ("dot", "sigmoid-embed")
+                   and r.get("case", "dot") in ("dot", "sigmoid-embed",
+                                                "shard 0 loc")
                    and r["k"] == 32)
         table.append({
             "name": kname, "route": "cuda", "source": source,

@@ -5,8 +5,10 @@ autograd over all four reductions, SDDMM, the 5-stage FusedMM pipeline, the
 GCN, GraphSAGE and GIN models and the reference training protocol.  On a
 tiled graph, sum/mean SpMM runs two hand-written CUDA kernels, max/min SpMM
 a third, SDDMM a fourth and FusedMM a forward and a backward kernel
-(``kernels/csrc``); the JAX package ``isplib_tpu`` beside this one is the
-unchanged reference.
+(``kernels/csrc``); a row-partitioned graph (``isplib_tpu_torch.dist``)
+runs them per shard, or two more for the v2 cell plans, around a halo
+exchange.  The JAX package ``isplib_tpu`` beside this one is the unchanged
+reference.
 Entry points default to ``device="cuda"`` and raise without a card unless
 the caller passes ``device="cpu"``.
 """
@@ -22,7 +24,7 @@ from .nn import (GCN, GIN, MODEL_REGISTRY, GCNConv, GINConv, GraphSAGE,
                  SAGEConv, add_self_loops, gcn_norm, row_normalize)
 from .train import TrainResult, train_node_classifier
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = [
     "CSRGraph", "TiledGraph", "from_edge_index", "from_scipy",

@@ -27,29 +27,21 @@
 // A row that is one segment writes out and arg directly; an empty row has
 // one empty segment, so every row is written by this kernel.  The segments
 // of a split row (R-MAT hubs of 10^4+ edges, whose segments run in no order)
-// meet in a zeroed 64-bit scratch through atomicMax on the key
-//     (ordered(w) << 32) | (0xFFFFFFFF - e),
-// where ordered() maps fp32 order onto unsigned order and -0.0 is made +0.0
-// first, so that the two zeros tie (as they compare equal in the reference)
-// and the lower id wins between them.  A second kernel decodes each split
-// row's key into arg and recomputes out = val[arg] * x[col[arg], k].
+// meet in a zeroed 64-bit scratch through atomicMax on the key of
+// minmax_key.cuh (ordered value, then the lower id; the two zeros tie).  A
+// second kernel decodes each split row's key into arg and recomputes
+// out = val[arg] * x[col[arg], k].
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "minmax_key.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;  // 8 warps, one work item each
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ unsigned long long key_of(float w, int e) {
-  if (w == 0.f) w = 0.f;  // -0.0 -> +0.0: the zeros tie, the lower id wins
-  unsigned u = __float_as_uint(w);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<unsigned long long>(u) << 32) |
-         (0xffffffffu - static_cast<unsigned>(e));
-}
 
 // NK: features per lane; a warp covers 32*NK features starting at k0.
 template <int NK>
@@ -116,7 +108,7 @@ __global__ void __launch_bounds__(THREADS)
       arg[o] = id[t] < 0 ? sentinel : id[t];
     } else {  // a segment of a split row is never empty
       atomicMax(scratch + static_cast<size_t>(slot) * k + f,
-                key_of(best[t], id[t]));
+                minmax_key(best[t], id[t]));
     }
   }
 }
@@ -132,8 +124,7 @@ __global__ void __launch_bounds__(THREADS)
   const size_t i = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
   if (i >= static_cast<size_t>(nsplit) * k) return;
   const int s = static_cast<int>(i / k), f = static_cast<int>(i % k);
-  const int e = static_cast<int>(
-      0xffffffffu - static_cast<unsigned>(scratch[i] & 0xffffffffull));
+  const int e = minmax_key_id(scratch[i]);
   const size_t o = static_cast<size_t>(split_rows[s]) * k + f;
   out[o] = __fmul_rn(val[e], x[static_cast<size_t>(col[e]) * k + f]);
   arg[o] = e;

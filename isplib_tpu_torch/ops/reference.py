@@ -78,8 +78,14 @@ def spmm_raw(
     x: torch.Tensor,
     num_rows: int,
     reduce: Reduce | str,
+    empty_to_zero: bool = True,
 ) -> torch.Tensor:
-    """SpMM forward on raw padded COO arrays (CSR-sorted rows)."""
+    """SpMM forward on raw padded COO arrays (CSR-sorted rows).
+
+    ``empty_to_zero=False`` keeps the ±inf identity of max/min on rows
+    without edges, so the sharded path can combine its local and halo
+    halves before it zeroes the rows that are empty in the whole graph.
+    """
     reduce = Reduce.of(reduce)
     x_pad = _pad_row(x)
     outs = []
@@ -97,7 +103,7 @@ def spmm_raw(
     out = torch.cat(outs, dim=1) if outs else x.new_zeros(num_rows, 0)
     if reduce is Reduce.MEAN:
         out = out / deg.clamp(min=1.0).to(out.dtype)[:, None]
-    elif reduce in (Reduce.MAX, Reduce.MIN):
+    elif reduce in (Reduce.MAX, Reduce.MIN) and empty_to_zero:
         out = torch.where((deg > 0)[:, None], out + 0.0,
                           torch.zeros_like(out))
     return out

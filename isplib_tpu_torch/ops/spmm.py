@@ -7,14 +7,15 @@ Backward formulas (as in the JAX package):
   mean: grad_x = SpMM(Aᵀ, g / max(deg,1))    grad_v[e] = <g[row e], x[col e]> / max(deg,1)
   max/min: gradients route through the winning edge of each (row, feature).
 
-On a TiledGraph, sum and mean run the hybrid CUDA kernels forward and, for
-``grad_x``, over the transpose plan; max and min run the max/min kernel
-(K3) over the ``fwd_mm`` plan, which also returns the winning edge ids.  A
-plain CSRGraph runs the reference path on any device, as the JAX package
-runs XLA there.  ``grad_v`` of sum/mean (an SDDMM) runs the SDDMM kernel
-(K4) over the ``fwd_mm`` work list on a TiledGraph and the plain formula on
-a CSRGraph; it is computed only when the edge values require a gradient.
-Pad edges never get a gradient.
+A ShardedGraph goes to the sharded path (``dist.spmm_sharded``), with its
+own autograd.  On a TiledGraph, sum and mean run the hybrid CUDA kernels
+forward and, for ``grad_x``, over the transpose plan; max and min run the
+max/min kernel (K3) over the ``fwd_mm`` plan, which also returns the
+winning edge ids.  A plain CSRGraph runs the reference path on any device,
+as the JAX package runs XLA there.  ``grad_v`` of sum/mean (an SDDMM) runs
+the SDDMM kernel (K4) over the ``fwd_mm`` work list on a TiledGraph and the
+plain formula on a CSRGraph; it is computed only when the edge values
+require a gradient.  Pad edges never get a gradient.
 
 ``sddmm(graph, a, b)`` is the per-edge ``<a[row e], b[col e]>``: K4 forward
 on a TiledGraph, the plain formula on a CSRGraph; its backward is the two
@@ -125,15 +126,23 @@ def spmm(graph, x: torch.Tensor, reduce: str | Reduce = "sum",
     """Sparse-dense matmul ``out = reduce(A ⊙ x)`` with full autograd.
 
     Args:
-      graph: CSRGraph or TiledGraph (R × C).
+      graph: CSRGraph, TiledGraph (R × C) or ShardedGraph (R × R), which
+        runs ``dist.spmm_sharded`` on the process-default mesh.
       x: dense operand (C, K).
       reduce: sum | mean | max | min.
-      backend: ``"auto"`` (the kernels for a TiledGraph) or
-        ``"reference"`` (the plain PyTorch path for any graph).
+      backend: ``"auto"`` (the kernels for a TiledGraph or a ShardedGraph
+        with plans) or ``"reference"`` (the plain PyTorch path for any
+        graph; a ShardedGraph's reference route).
     """
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got "
                          f"{backend!r}")
+    from ..dist.partition import ShardedGraph
+    if isinstance(graph, ShardedGraph):
+        from ..dist.spmm_dist import spmm_sharded
+        if backend == "reference":
+            graph = graph.without_plans()
+        return spmm_sharded(graph, x, reduce)
     return SpMM.apply(graph, Reduce.of(reduce), backend, x,
                       base_graph(graph).value)
 

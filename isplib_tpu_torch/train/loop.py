@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ..data.synthetic import NodeDataset
 from ..device import resolve_device
+from ..dist.partition import ShardedGraph
 from ..nn.conv import BatchNorm
 from ..sparse.tiling import TiledGraph, auto_tile, base_graph
 
@@ -107,7 +108,10 @@ def train_node_classifier(
     With ``tile`` (the default) a large CSRGraph on CUDA is tiled first
     (``auto_tile``), so its SpMMs run the kernels, and a TiledGraph is used
     as it is; without it the SpMMs run the reference path on the plain
-    graph, tiled or not.  ``loss`` defaults to ``'ce'`` for a model
+    graph, tiled or not.  A ShardedGraph (``dist.partition_rows``) is
+    trained on as it is (without ``tile``, on its reference route), its
+    SpMMs on the process-default mesh (``dist.set_mesh``), with global
+    features and labels.  ``loss`` defaults to ``'ce'`` for a model
     with batch statistics (GIN emits logits) and ``'nll'`` otherwise, as in
     the JAX package.  ``seed`` seeds the dropout generator.  The warm-up
     epoch's changes to the parameters and to the batch statistics are
@@ -120,7 +124,9 @@ def train_node_classifier(
                               for m in model.modules())
         loss = "ce" if has_batch_stats else "nll"
     graph = ds.graph
-    if not tile:
+    if isinstance(graph, ShardedGraph):
+        graph = (graph if tile else graph.without_plans()).to(dev)
+    elif not tile:
         graph = base_graph(graph).to(dev)
     elif not isinstance(graph, TiledGraph):
         graph = auto_tile(graph.to(dev))

@@ -14,11 +14,14 @@ import pytest
 import torch
 
 import isplib_tpu_torch as pt
+from isplib_tpu_torch.dist import LocalMesh, partition_rows, spmm_sharded
 from isplib_tpu_torch.kernels import (build, fused, fused_bwd, sddmm,
-                                      spmm_bsr, spmm_minmax_v4, spmm_stream)
+                                      spmm_bsr, spmm_minmax, spmm_minmax_v4,
+                                      spmm_stream, spmm_v2)
 from isplib_tpu_torch.ops.semiring import (FusedOp, Reduce, ReduceOp,
                                            ScalarOp, ScaleOp, VectorOp)
 from isplib_tpu_torch.sparse.tiling import build_tiling
+from isplib_tpu_torch.sparse.tiling_v2 import build_plan_v2_arrays
 from isplib_tpu_torch.sparse.tiling_v5 import SEG_EDGES
 
 
@@ -117,7 +120,8 @@ def test_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = sorted(p.name for p in build.CSRC.glob("*.cu"))
     assert names == ["fused.cu", "fused_bwd.cu", "sddmm.cu", "spmm_bsr.cu",
-                     "spmm_minmax_v4.cu", "spmm_stream.cu"]
+                     "spmm_minmax.cu", "spmm_minmax_v4.cu", "spmm_stream.cu",
+                     "spmm_v2.cu"]
 
 
 @pytest.fixture
@@ -306,3 +310,88 @@ def test_fused_mm_on_cuda_runs_the_kernels(cuda):
     assert_near_plain(outs[0], outs[1])
     assert_near_plain(grads[0], grads[2])
     assert_near_plain(grads[1], grads[3])
+
+
+def v2_case(device, geometry, ties, k):
+    """A with-eids v2 plan of hub_graph's (or zero_tie_graph's) edges with
+    ``geometry`` = (rb, ct, eb), and x."""
+    g = zero_tie_graph("cpu") if ties else hub_graph("cpu")
+    n = g.nnz
+    rb, ct, eb = geometry
+    plan = build_plan_v2_arrays(
+        g.row[:n].numpy(), g.col[:n].numpy(), g.value[:n].numpy(),
+        g.num_rows, g.num_cols, rb=rb, ct=ct, eb=eb, k=k, with_eids=True,
+        device=device)
+    x = torch.randn(g.num_cols, k, device=device)
+    return plan, (x.round() if ties else x), g.nnz_padded - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 32, 41, 130, 602])
+@pytest.mark.parametrize("geometry", [(128, 128, 512), (256, 512, 512)])
+def test_v2_sum_kernel_matches_plain_version(cuda, geometry, k):
+    """K8: fp32 on both sides, only the sum order differs (atomics)."""
+    plan, x, _ = v2_case(cuda, geometry, False, k)
+    before = spmm_v2.LAUNCHES
+    got = spmm_v2.spmm_v2(plan, x)
+    want = spmm_v2.spmm_v2_plain(plan, x)
+    torch.cuda.synchronize()
+    assert spmm_v2.LAUNCHES == before + 1
+    assert_near_plain(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 32, 41, 130, 602])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("geometry", [(128, 128, 512), (256, 512, 512)])
+def test_v2_minmax_kernel_matches_plain_version(cuda, geometry, ties, reduce,
+                                                k):
+    """K7: exact fp32 on both sides, values bit for bit, args equal."""
+    plan, x, sentinel = v2_case(cuda, geometry, ties, k)
+    before = spmm_minmax.LAUNCHES
+    got = spmm_minmax.spmm_minmax_v2(plan, x, reduce, sentinel)
+    want = spmm_minmax.spmm_minmax_v2_plain(plan, x, reduce, sentinel)
+    torch.cuda.synchronize()
+    assert spmm_minmax.LAUNCHES == before + 1
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("version", [2, 5])
+def test_sharded_spmm_on_cuda_runs_the_kernels(cuda, version):
+    """A 4-shard LocalMesh on the card: sum through K8 (or K1/K2) and max
+    through K7, forward and grad, against the same partition's reference
+    route."""
+    g = hub_graph("cpu", num_rows=1200, num_cols=1200)
+    n = g.nnz
+    args = (g.row[:n].numpy(), g.col[:n].numpy(), g.value[:n].numpy(),
+            1200, 4)
+    tiled = partition_rows(*args, tiling=dict(version=version),
+                           device=cuda)
+    plain = partition_rows(*args, device=cuda)
+    w = torch.randn(1200, 41, device=cuda)
+    for red, mod in (("sum", spmm_v2 if version == 2 else spmm_bsr),
+                     ("max", spmm_minmax)):
+        outs = []
+        for sg in (tiled, plain):
+            x = torch.randn(1200, 41, device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(0))
+            x.requires_grad_(True)
+            before = mod.LAUNCHES
+            out = spmm_sharded(sg, x, red, mesh=LocalMesh(4))
+            (out * w).sum().backward()
+            assert (mod.LAUNCHES > before) == (sg is tiled)
+            outs.append((out.detach(), x.grad))
+        (o1, g1), (o2, g2) = outs
+        if red == "max":  # exact values; the grads add in another order
+            assert torch.equal(o1, o2)
+            assert float((g1 - g2).abs().max()) <= 1e-5 * float(
+                g2.abs().max())
+        else:  # the v5 route's dense half rounds to bf16
+            tol = 1e-4 if version == 2 else 2e-2
+            assert float((o1 - o2).abs().max()) <= tol * float(
+                o2.abs().max())
+            assert float((g1 - g2).abs().max()) <= tol * float(
+                g2.abs().max())
