@@ -91,6 +91,25 @@
    reference route (NCCL's all_to_all) against the unsharded kernels, and
    its time against the unsharded hybrid SpMM (the sharded path's
    overhead).
+9. The autotuner and plan generations 1-5, with a fresh tune cache and
+   plan cache in a temporary directory (removed at the end).  Every
+   ``DEFAULT_CONFIGS`` entry is built for A and Aᵀ on both graphs (bytes,
+   fill and build seconds logged) and its SpMM at K = 32 held against the
+   fp32 reference (2e-2 where bf16 blocks carry edges, versions 5 and 3;
+   1e-4·max|ref| for versions 2 and 1); ``tune_spmm`` at K = 32 then times
+   those builds (every configuration's ms and Gedges/s, the winner) and
+   saves the winner's plans, so no plan is built twice.  K9 on
+   density-rep's v3 plans (threshold 64, g = 32; reddit-sim's residual is
+   empty there) and K10 on both graphs' v1 plans, forward and transposed at
+   K = 32, 41 and 602, each against its plain version at
+   1e-4·max|plain| and timed beside ``torch.sparse.mm`` of the same edges
+   and the bound (K9's operations at the bf16 tensor-core rate).  Then
+   ``auto_tile`` of a fresh CSRGraph of the same
+   arrays, which must load the winner's plans from the plan cache (equal
+   to the winner's, load time against build time), 10 GCN epochs on it,
+   and GCN through versions 3 (K9 + K8), 1 (K10) and 2 (K8) on
+   density-rep, 10 epochs each, against the reference path (2e-2 for
+   version 3, 1e-4 for versions 1 and 2).
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line; every
@@ -106,6 +125,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 import zlib
@@ -134,6 +154,7 @@ MM_KS = (32, 41, K_WIDE)
 RMAT_NODES, RMAT_EDGES, FUSED_K = 11_648, 5_730_794, 32
 SDDMM_KS = (32, 41)
 FUSED_STEPS = 20
+TUNE_ITERS = 10           # chain_time calls per configuration in the sweep
 
 
 def log(msg: str) -> None:
@@ -737,8 +758,7 @@ def plan_stats(plan) -> tuple[int, float]:
     """A shard plan's device bytes and fill: the share of real edges among
     a v2 plan's slots, or among a hybrid plan's dense-block entries."""
     from isplib_tpu_torch.sparse.tiling_v2 import TiledPlanV2
-    tensors = [v for v in vars(plan).values() if isinstance(v, torch.Tensor)]
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    nbytes = plan_bytes(plan)
     if isinstance(plan, TiledPlanV2):
         return nbytes, plan.fill
     return nbytes, plan.dense_edges / max(plan.nb * 128 * 128, 1)
@@ -1021,6 +1041,281 @@ def sharded_paths(graphs, cases, drive, train, check, unsharded, gen):
     return v5_launches, v2_launches, mm_launches
 
 
+def plan_bytes(obj) -> int:
+    """Device bytes of a plan, nested plans included."""
+    if obj is None:
+        return 0
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    return sum(plan_bytes(v) for v in vars(obj).values()
+               if v is None or isinstance(v, torch.Tensor) or hasattr(
+                   v, "__dataclass_fields__"))
+
+
+def v3_members(plan):
+    """The real (non-pad) members of a BSRPlan: their row blocks and block
+    columns (a cell's real members have strictly increasing rb_locals, its
+    group pads come last with rb_local 0)."""
+    g, n = plan.g, plan.nb
+    groups = torch.arange(n // g, device=plan.device, dtype=torch.int32)
+    cell = (torch.searchsorted(plan.cell_starts[:-1].contiguous(), groups,
+                               right=True).long() - 1).repeat_interleave(g)
+    rbl = plan.rb_locals.long()
+    first = plan.cell_starts.long()[cell] * g == torch.arange(
+        n, device=plan.device)
+    prev = torch.cat([rbl.new_full((1,), -1), rbl[:-1]])
+    real = first | (rbl > prev)
+    rblock = (cell // plan.n_bc) * plan.nrb_s + rbl
+    return rblock[real], (cell % plan.n_bc)[real]
+
+
+def v3_dense_csr(plan, graph):
+    """The edges of a BSRPlan's dense blocks as a CSR tensor (fp32 values),
+    the library yardstick of K9."""
+    rblock, bcol = v3_members(plan)
+    n = graph.nnz
+    row, col = graph.row[:n].long(), graph.col[:n].long()
+    n_bc = plan.n_bc
+    is_dense = torch.isin((row // 128) * n_bc + col // 128,
+                          rblock * n_bc + bcol)
+    rowptr = torch.zeros(graph.num_rows + 1, dtype=torch.long,
+                         device=row.device)
+    rowptr[1:] = torch.cumsum(torch.bincount(row[is_dense],
+                                             minlength=graph.num_rows), 0)
+    return (csr(rowptr, col[is_dense], graph.value[:n][is_dense],
+                graph.shape), rblock, bcol)
+
+
+def check_and_time_v3(name, direction, plan, graph, k, gen):
+    """K9 on one plan at K: against its plain version (same rounding, sum
+    order only: 1e-4·max|plain|), timed beside ``torch.sparse.mm`` of the
+    dense blocks' edges and the bound (the real members' bf16 blocks, the x
+    tiles of their block columns, the rows they write; 2·128²·K operations
+    a member at the bf16 tensor-core rate)."""
+    from isplib_tpu_torch.kernels import spmm_bsr_v3 as k9
+
+    x = torch.randn(plan.num_cols, k, device=gen.device, generator=gen)
+    err, tol = check_near_plain(f"spmm_bsr_v3 {name} {direction} K={k}",
+                                k9.spmm_bsr_v3(plan, x),
+                                k9.spmm_bsr_v3_plain(plan, x))
+    lib, rblock, bcol = v3_dense_csr(plan, graph)
+    members = int(rblock.numel())
+    x_rows = min(used(bcol) * 128, plan.num_cols)
+    out_rows = min(used(rblock) * 128, plan.num_rows)
+    wide = k > 64
+    return dict(kernel="spmm_bsr_v3", graph=name, direction=direction, k=k,
+                max_abs_err=err, tol=tol, members=members, nb=plan.nb,
+                ms=cuda_ms(lambda: k9.spmm_bsr_v3(plan, x)),
+                plain_ms=cuda_ms(lambda: k9.spmm_bsr_v3_plain(plan, x),
+                                 iters=2 if wide else 5, warmup=1),
+                library_ms=cuda_ms(lambda: torch.sparse.mm(lib, x)),
+                bound=bound_ms(
+                    members * 128 * 128 * 2 + (plan.nb + plan.n_cells + 1) * 4
+                    + x_rows * k * 4 + out_rows * k * 4,
+                    2.0 * members * 128 * 128 * k, BF16_TENSOR_FLOPS))
+
+
+def check_and_time_v1(name, direction, plan, graph, k, gen):
+    """K10 on one plan at K: against its plain version (fp32, sum order
+    only), timed beside ``torch.sparse.mm`` of the same edges and the bound
+    (12 B a real edge, the chunk tables, the x rows read, the output)."""
+    from isplib_tpu_torch.kernels import spmm_rowblock as k10
+
+    x = torch.randn(plan.num_cols, k, device=gen.device, generator=gen)
+    err, tol = check_near_plain(f"spmm_rowblock {name} {direction} K={k}",
+                                k10.spmm_rowblock(plan, x),
+                                k10.spmm_rowblock_plain(plan, x))
+    n = graph.nnz
+    lib = csr(graph.rowptr, graph.col[:n], graph.value[:n], graph.shape)
+    wide = k > 64
+    return dict(kernel="spmm_rowblock", graph=name, direction=direction, k=k,
+                max_abs_err=err, tol=tol, nc=plan.nc, fill=plan.fill,
+                ms=cuda_ms(lambda: k10.spmm_rowblock(plan, x)),
+                plain_ms=cuda_ms(lambda: k10.spmm_rowblock_plain(plan, x),
+                                 iters=2 if wide else 5, warmup=1),
+                library_ms=cuda_ms(lambda: torch.sparse.mm(lib, x)),
+                bound=bound_ms(
+                    n * 12 + plan.nc * 8 + (plan.nrb + 1) * 4
+                    + used(graph.col[:n]) * k * 4 + plan.num_rows * k * 4,
+                    2.0 * n * k, FP32_FLOPS))
+
+
+def same_plans(a, b) -> bool:
+    """Two plan trees equal: types, integers, tensors bit for bit."""
+    import dataclasses
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+    if dataclasses.is_dataclass(a):
+        return all(same_plans(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return a == b
+
+
+def tuner_paths(graphs, cases, drive, train, check, gen):
+    """Phase 9: every DEFAULT_CONFIGS entry built (A and Aᵀ) and held
+    against the reference path on both graphs, and ``tune_spmm`` over those
+    builds; K9 and K10 against their plain versions and timed; ``auto_tile``
+    of a fresh graph from both caches and 10 GCN epochs on it; GCN through
+    versions 3, 1 and 2 on density-rep.  Appends the kernel cases to
+    ``cases``; returns the launches of the version-3, -1 and -2 paths."""
+    import contextlib
+
+    from isplib_tpu_torch import GCN, graph_from_arrays
+    from isplib_tpu_torch.kernels.spmm_hybrid import run_plan
+    from isplib_tpu_torch.ops import reference
+    from isplib_tpu_torch.sparse import plan_cache
+    from isplib_tpu_torch.sparse.tiling import (auto_tile,
+                                                build_tiling_from_numpy,
+                                                host_arrays)
+    from isplib_tpu_torch.tune import autotune
+
+    def cfg_tag(cfg):
+        return " ".join(f"{f}={v}" for f, v in cfg.items())
+
+    t_phase = time.perf_counter()
+
+    # ---- every configuration, built once (A and Aᵀ) and held against the
+    # reference; the tuner times these builds and persists its winner's ----
+    kept, build_s, winners = {}, {}, {}
+    for name, (_, g, _) in graphs.items():
+        arrays = host_arrays(g)
+        gt = g.transpose()
+        x = torch.randn(g.num_cols, 32, device=gen.device, generator=gen)
+        refs = {d: reference.spmm_raw(gg.row, gg.col, gg.value, gg.deg, x,
+                                      gg.num_rows, "sum")
+                for d, gg in (("fwd", g), ("bwd", gt))}
+        built = []
+        for i, cfg in enumerate(autotune.DEFAULT_CONFIGS):
+            t0 = time.perf_counter()
+            tg = build_tiling_from_numpy(g, arrays, k=32, **cfg)
+            torch.cuda.synchronize()
+            build_s[(name, i)] = time.perf_counter() - t0
+            bf16 = cfg["version"] in (5, 3)
+            errs = []
+            for d, plan in (("fwd", tg.fwd), ("bwd", tg.bwd)):
+                out, ref = run_plan(plan, x), refs[d]
+                scale = float(ref.abs().max())
+                err = float((out - ref).abs().max())
+                ok = bool(torch.isfinite(out).all()) and (
+                    torch.allclose(out, ref, rtol=2e-2, atol=2e-2 * scale)
+                    if bf16 else err <= 1e-4 * scale)
+                if not ok:
+                    raise AssertionError(f"{name} {cfg_tag(cfg)} {d}: max err "
+                                         f"{err} (max |ref| {scale})")
+                errs.append(err / scale)
+            log(f"config {name:11s} {cfg_tag(cfg)}: built A and Aᵀ in "
+                f"{build_s[(name, i)]:.2f}s, fwd plan "
+                f"{plan_bytes(tg.fwd) / 2**20:.1f} MiB fill "
+                f"{tg.fwd.fill:.3f}, bwd {plan_bytes(tg.bwd) / 2**20:.1f} "
+                f"MiB; err/max|ref| fwd {errs[0]:.3g}, bwd {errs[1]:.3g}")
+            if cfg["version"] in (3, 2, 1) and (
+                    name == "density-rep" or cfg["version"] == 1):
+                kept.setdefault((name, cfg["version"]), tg)
+            built.append(tg)
+            del tg
+        del refs
+
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(sys.stdout):
+            best, tiled = autotune.tune_spmm(g, arrays, k=32,
+                                             iters=TUNE_ITERS, built=built)
+        torch.cuda.synchronize()
+        log(f"tune_spmm {name}: {time.perf_counter() - t0:.1f}s (timing the "
+            f"checked builds, saving the winner's plans); winner "
+            f"{best['backend']} "
+            + cfg_tag({f: v for f, v in best.items()
+                       if f not in ("backend", "seconds", "edges_per_s")})
+            + f", {best['seconds'] * 1e3:.4f} ms, "
+            f"{best['edges_per_s'] / 1e9:.3f} Gedges/s")
+        winners[name] = (best, tiled)
+        del built
+
+    # ---- K9 and K10 against their plain versions, and their times --------
+    _, gd, _ = graphs["density-rep"]
+    v3 = kept[("density-rep", 3)]
+    for direction, plan, graph in (("fwd", v3.fwd.bsr, gd),
+                                   ("bwd", v3.bwd.bsr, gd.transpose())):
+        for k in MM_KS:
+            r = check_and_time_v3("density-rep", direction, plan, graph, k,
+                                  gen)
+            cases.append(r)
+            log(f"spmm_bsr_v3  density-rep {direction} K={k}: {r['ms']:.4f} "
+                f"ms (plain {r['plain_ms']:.3f}, library "
+                f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
+                f"{r['bound'][1]}), err {r['max_abs_err']:.3g} <= "
+                f"{r['tol']:.3g}; {r['members']} real members of {r['nb']}")
+    for name, (_, g, _) in graphs.items():
+        v1 = kept[(name, 1)]
+        for direction, plan, graph in (("fwd", v1.fwd, g),
+                                       ("bwd", v1.bwd, g.transpose())):
+            for k in MM_KS:
+                r = check_and_time_v1(name, direction, plan, graph, k, gen)
+                cases.append(r)
+                log(f"spmm_rowblock {name:11s} {direction} K={k}: "
+                    f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library "
+                    f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
+                    f"{r['bound'][1]}), err {r['max_abs_err']:.3g} <= "
+                    f"{r['tol']:.3g}; {r['nc']} chunks, fill {r['fill']:.3f}")
+
+    # ---- auto_tile of a fresh graph takes the winner from both caches -----
+    for name, (arrays, g, _) in graphs.items():
+        best, tiled = winners.pop(name)
+        key = autotune.signature_of(g, 32)
+        if autotune.lookup(key) != best:
+            raise AssertionError(f"{name}: the tune cache lost the winner")
+        if best["backend"] != "kernels":
+            raise AssertionError(f"{name}: the reference path won the sweep")
+        files = [f for f in os.listdir(plan_cache.default_cache_dir())
+                 if f.startswith(f"plan_{key}_")]
+        fresh = graph_from_arrays(arrays, "cuda")
+        t0 = time.perf_counter()
+        loaded = auto_tile(fresh, k=32)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        i = next(i for i, c in enumerate(autotune.DEFAULT_CONFIGS)
+                 if all(best.get(f) == v for f, v in c.items()))
+        if not all(same_plans(getattr(loaded, f), getattr(tiled, f))
+                   for f in ("fwd", "bwd", "fwd_mm", "bwd_mm")):
+            raise AssertionError(f"{name}: auto_tile's plans differ from the "
+                                 "tuned winner's")
+        log(f"auto_tile {name} (fresh graph, k=32): the tuned config's plans "
+            f"from the plan cache ({len(files)} file(s) under the "
+            f"signature), equal to the winner's, in {load_s:.2f}s against "
+            f"{build_s[(name, i)]:.2f}s to build them")
+        ver = best["version"]
+        needs = {5: ("spmm_bsr",) if loaded.fwd.nb else ("spmm_stream",),
+                 4: ("spmm_stream",), 3: ("spmm_bsr_v3",), 2: ("spmm_v2",),
+                 1: ("spmm_rowblock",)}[ver]
+        label = f"tuned GCN (version {ver})"
+        runs, _ = drive(f"{label} path on {name}", needs, lambda: train(
+            label, lambda: GCN(FEATURES, hidden=32, num_classes=CLASSES,
+                               seed=0), [name], SHORT_EPOCHS,
+            lambda n, t=loaded: t))
+        check(label, runs, "nll", 2e-2 if ver in (5, 3) else 1e-4,
+              tiled_of=lambda n, t=loaded: t)
+        del loaded, tiled, fresh
+
+    # ---- GCN through versions 3, 1 and 2 on density-rep -------------------
+    launches = {}
+    for ver, needs in ((3, ("spmm_bsr_v3", "spmm_v2")),
+                       (1, ("spmm_rowblock",)), (2, ("spmm_v2",))):
+        t = kept[("density-rep", ver)]
+        label = f"GCN version {ver}"
+        runs, launches[ver] = drive(f"{label} path", needs, lambda t=t: train(
+            label, lambda: GCN(FEATURES, hidden=32, num_classes=CLASSES,
+                               seed=0), ["density-rep"], SHORT_EPOCHS,
+            lambda n, t=t: t))
+        check(label, runs, "nll", 2e-2 if ver == 3 else 1e-4,
+              tiled_of=lambda n, t=t: t)
+    log(f"phase 9 (tuner and plan versions): "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -1033,14 +1328,28 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    # a fresh tune cache and plan cache, so that no earlier entry skips the
+    # sweep or a build; set before the port is imported
+    caches = tempfile.mkdtemp(prefix="isplib_tpu_torch_smoke_")
+    os.environ["ISPLIB_TPU_TORCH_CACHE_DIR"] = os.path.join(caches, "plans")
+    os.environ["ISPLIB_TPU_TORCH_TUNE_CACHE"] = os.path.join(caches,
+                                                             "tune.json")
+    try:
+        return smoke()
+    finally:
+        shutil.rmtree(caches, ignore_errors=True)
+
+
+def smoke() -> int:
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from isplib_tpu_torch import (GCN, GIN, GraphSAGE, graph_from_arrays,
                                   run_model, train_node_classifier)
     from isplib_tpu_torch.data import NodeDataset, gen_gcnsig_graph
     from isplib_tpu_torch.kernels import (build, fused, fused_bwd, sddmm,
-                                          spmm_bsr, spmm_minmax,
-                                          spmm_minmax_v4, spmm_stream,
-                                          spmm_v2)
+                                          spmm_bsr, spmm_bsr_v3, spmm_minmax,
+                                          spmm_minmax_v4, spmm_rowblock,
+                                          spmm_stream, spmm_v2)
     from isplib_tpu_torch.sparse.tiling import auto_tile
     from isplib_tpu_torch.train.loop import _loss_fn
 
@@ -1122,7 +1431,8 @@ def main() -> int:
     kernels = {"spmm_bsr": spmm_bsr, "spmm_stream": spmm_stream,
                "spmm_minmax_v4": spmm_minmax_v4, "sddmm": sddmm,
                "fused": fused, "fused_bwd": fused_bwd, "spmm_v2": spmm_v2,
-               "spmm_minmax": spmm_minmax}
+               "spmm_minmax": spmm_minmax, "spmm_bsr_v3": spmm_bsr_v3,
+               "spmm_rowblock": spmm_rowblock}
 
     def drive(path, needs, fn):
         """Run ``fn`` with every launch count set to 0 just before it and
@@ -1164,11 +1474,13 @@ def main() -> int:
                 f"{res.train_acc:.4f}, test acc {res.test_acc:.4f}")
         return runs
 
-    def check(label, runs, loss, rtol, min_acc=None, graph_of=None):
+    def check(label, runs, loss, rtol, min_acc=None, graph_of=None,
+              tiled_of=None):
         """Loss finite and falling, accuracy, and the trained model's loss
         through the kernels against the reference path (with ``graph_of``:
         through the kernels on that graph against the unsharded TiledGraph's
-        kernels)."""
+        kernels; with ``tiled_of``: on that TiledGraph against the reference
+        path)."""
         for name, model, res in runs:
             if not np.all(np.isfinite(res.losses)):
                 raise AssertionError(f"{name} {label}: non-finite loss "
@@ -1185,6 +1497,8 @@ def main() -> int:
             mask = torch.from_numpy(arrays["train_mask"]).cuda()
             ran, ref = (tiled, g) if graph_of is None else (graph_of(name),
                                                              tiled)
+            if tiled_of is not None:
+                ran = tiled_of(name)
             model.eval()
             with torch.no_grad():
                 l_kernel = float(_loss_fn(model(ran, x), y, mask, loss))
@@ -1254,6 +1568,9 @@ def main() -> int:
     v5_launches, v2_launches, mm_launches = sharded_paths(
         graphs, cases, drive, train, check, unsharded, gen)
 
+    # ---- the tuner and plan generations 1-3 (K9, K10) ----------------------
+    version_launches = tuner_paths(graphs, cases, drive, train, check, gen)
+
     # ---- the kernel table, each kernel at K = 32 forward on the graph whose
     # edges it carries: the dense blocks of reddit-sim, the residual edges
     # of the density-representative graph, all edges for max/min (on the
@@ -1287,7 +1604,16 @@ def main() -> int:
                        "reddit-sim", v2_launches),
            "spmm_minmax": ("isplib_tpu_torch/kernels/csrc/spmm_minmax.cu",
                            "isplib_tpu/kernels/spmm_minmax.py:77",
-                           "reddit-sim", mm_launches)}
+                           "reddit-sim", mm_launches),
+           # K9 on density-rep's v3 plan (threshold 64, g = 32), K10 on its
+           # v1 plan; launches from GCN through versions 3 and 1
+           "spmm_bsr_v3": ("isplib_tpu_torch/kernels/csrc/spmm_bsr_v3.cu",
+                           "isplib_tpu/kernels/spmm_bsr.py:40",
+                           "density-rep", version_launches[3]),
+           "spmm_rowblock": (
+               "isplib_tpu_torch/kernels/csrc/spmm_rowblock.cu",
+               "isplib_tpu/kernels/spmm_pallas.py:95", "density-rep",
+               version_launches[1])}
     table = []
     for kname, (source, replaces, gname, launches) in src.items():
         row = next(r for r in cases if r["kernel"] == kname
@@ -1305,6 +1631,7 @@ def main() -> int:
             "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"]})
 
+    log(f"every check passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

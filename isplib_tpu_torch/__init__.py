@@ -7,8 +7,11 @@ tiled graph, sum/mean SpMM runs two hand-written CUDA kernels, max/min SpMM
 a third, SDDMM a fourth and FusedMM a forward and a backward kernel
 (``kernels/csrc``); a row-partitioned graph (``isplib_tpu_torch.dist``)
 runs them per shard, or two more for the v2 cell plans, around a halo
-exchange.  The JAX package ``isplib_tpu`` beside this one is the unchanged
-reference.
+exchange.  ``build_tiling(version=1..5)`` picks the plan generation, and
+with it the sum kernels (the v3 celled BSR and the v1 row-block kernel
+among them); ``tune_spmm`` times them all on the card and ``auto_tile``
+takes its recorded winner.  The JAX package ``isplib_tpu`` beside this
+one is the unchanged reference.
 Entry points default to ``device="cuda"`` and raise without a card unless
 the caller passes ``device="cpu"``.
 """
@@ -23,8 +26,9 @@ from .sparse import (CSRGraph, TiledGraph, auto_tile, build_tiling,
 from .nn import (GCN, GIN, MODEL_REGISTRY, GCNConv, GINConv, GraphSAGE,
                  SAGEConv, add_self_loops, gcn_norm, row_normalize)
 from .train import TrainResult, train_node_classifier
+from .tune import tune_spmm
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 __all__ = [
     "CSRGraph", "TiledGraph", "from_edge_index", "from_scipy",
@@ -35,5 +39,5 @@ __all__ = [
     "MODEL_REGISTRY", "GCNConv", "SAGEConv", "GINConv", "add_self_loops",
     "gcn_norm", "row_normalize", "TrainResult", "train_node_classifier",
     "gcn_params_from_flax", "sage_params_from_flax", "gin_params_from_flax",
-    "__version__",
+    "tune_spmm", "__version__",
 ]

@@ -1,7 +1,8 @@
 """Sum-SpMM over a v2 cell plan: ``csrc/spmm_v2.cu`` and its plain version.
 
 Counterpart of ``isplib_tpu/kernels/spmm_pallas_v2.py::_spmm_v2_kernel``
-(K8), the sharded path's sum kernel under ``tiling={"version": 2}``.  The
+(K8), the sharded path's sum kernel under ``tiling={"version": 2}``, the
+kernel of ``build_tiling(version=2)`` and the residual half of version 3.  The
 port computes in fp32; the TPU kernel rounds each product to bf16.  For a
 CUDA tensor the wrapper launches the kernel or raises; the plain version
 runs only for a CPU tensor (and in ``chip_smoke.py``, which holds the
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -63,16 +65,28 @@ def _lib():
     return fn
 
 
-def spmm_v2(plan: TiledPlanV2, x: torch.Tensor) -> torch.Tensor:
-    """``out (num_rows, K) = plan's edges @ x``, fp32."""
+def spmm_v2(plan: TiledPlanV2, x: torch.Tensor,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out (num_rows, K) += plan's edges @ x``, fp32, into zeros when
+    ``out`` is None (the v3 hybrid passes its dense half's output);
+    returns ``out``."""
     global LAUNCHES
     check_operand(plan, x)
+    k = x.shape[1]
+    if out is not None and (out.shape != (plan.num_rows, k)
+                            or out.dtype != torch.float32
+                            or not out.is_contiguous()
+                            or out.device != x.device):
+        raise ValueError(f"out must be a contiguous ({plan.num_rows}, {k}) "
+                         f"float32 tensor on {x.device}")
     if x.device.type == "cpu":
-        return spmm_v2_plain(plan, x)
+        part = spmm_v2_plain(plan, x)
+        return part if out is None else out.add_(part)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_v2 runs on cuda or cpu, not {x.device}")
-    k = x.shape[1]
-    out = torch.zeros(plan.num_rows, k, dtype=torch.float32, device=x.device)
+    if out is None:
+        out = torch.zeros(plan.num_rows, k, dtype=torch.float32,
+                          device=x.device)
     if plan.fill == 0.0 or k == 0:
         return out
     err = _lib()(plan.edges.data_ptr(), plan.rb_locals.data_ptr(),

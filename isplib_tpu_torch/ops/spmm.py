@@ -8,8 +8,11 @@ Backward formulas (as in the JAX package):
   max/min: gradients route through the winning edge of each (row, feature).
 
 A ShardedGraph goes to the sharded path (``dist.spmm_sharded``), with its
-own autograd.  On a TiledGraph, sum and mean run the hybrid CUDA kernels
-forward and, for ``grad_x``, over the transpose plan; max and min run the
+own autograd.  On a TiledGraph, sum and mean run the kernels of its plan
+version (``kernels/spmm_hybrid``) forward and, for ``grad_x``, over the
+transpose plan, or the reference transpose path when the tiling was built
+without one (``bwd`` None, as the JAX package falls back to XLA, never to
+the forward plan); max and min run the
 max/min kernel (K3) over the ``fwd_mm`` plan, which also returns the
 winning edge ids.  A plain CSRGraph runs the reference path on any device,
 as the JAX package runs XLA there.  ``grad_v`` of sum/mean (an SDDMM) runs
@@ -42,10 +45,10 @@ class SpMM(torch.autograd.Function):
     """``out = reduce(A ⊙ x)``, differentiable in ``x`` and ``value``.
 
     ``value`` is the graph's edge-value vector (CSR order, padded).  With
-    ``backend="auto"`` a TiledGraph runs the hybrid kernels for sum/mean and
-    the max/min kernel for max/min, and a CSRGraph runs the reference path;
-    ``"reference"`` always runs the reference path.
-    The hybrid kernels read the values baked into the plan; the max/min
+    ``backend="auto"`` a TiledGraph runs its plan's sum kernels for sum/mean
+    and the max/min kernel for max/min, and a CSRGraph runs the reference
+    path; ``"reference"`` always runs the reference path.
+    The sum kernels read the values baked into the plan; the max/min
     kernel reads ``value``.
     """
 
@@ -83,7 +86,7 @@ class SpMM(torch.autograd.Function):
             g_eff = g
             if ctx.reduce is Reduce.MEAN:
                 g_eff = g / base.deg.clamp(min=1.0).to(g.dtype)[:, None]
-            if need_x and ctx.tiled:
+            if need_x and ctx.tiled and ctx.graph.bwd is not None:
                 grad_x = spmm_hybrid.spmm_transpose_sum(ctx.graph, g_eff)
             elif need_x:
                 grad_x = reference.spmm_raw(

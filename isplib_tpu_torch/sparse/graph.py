@@ -192,11 +192,15 @@ def from_edge_index(
     edge_value: Optional[np.ndarray] = None,
     edge_multiple: int = 512,
     device: str | torch.device = "cuda",
-) -> CSRGraph:
+    tiling: Optional[dict] = None,
+):
     """Build a CSRGraph from a (2, E) COO ``[src; dst]`` edge_index.
 
     Edge (src, dst) becomes entry (row=dst, col=src), the message-passing
-    adjacency of PyG's ``ToSparseTensor``.
+    adjacency of PyG's ``ToSparseTensor``.  With ``tiling`` (a dict of
+    ``build_tiling`` keys, e.g. ``dict(version=2, k=41)``) the result is a
+    TiledGraph whose plans are built from the host arrays, with no read
+    back from the device.
     """
     edge_index = np.asarray(edge_index)
     col, row = edge_index[0], edge_index[1]
@@ -205,14 +209,27 @@ def from_edge_index(
     num_cols = num_src_nodes if num_src_nodes is not None else num_nodes
     arrays = _build_arrays(row, col, edge_value, num_nodes, num_cols,
                            edge_multiple)
-    return graph_from_arrays(arrays, device)
+    return _finalize(arrays, device, tiling)
 
 
 def from_scipy(mat, edge_multiple: int = 512,
-               device: str | torch.device = "cuda") -> CSRGraph:
-    """Build from any scipy.sparse matrix (e.g. loaded from a .mtx file)."""
+               device: str | torch.device = "cuda",
+               tiling: Optional[dict] = None):
+    """Build from any scipy.sparse matrix (e.g. loaded from a .mtx file);
+    ``tiling`` as in :func:`from_edge_index`."""
     coo = mat.tocoo()
     arrays = _build_arrays(coo.row, coo.col, coo.data.astype(np.float32),
                            int(coo.shape[0]), int(coo.shape[1]),
                            edge_multiple)
-    return graph_from_arrays(arrays, device)
+    return _finalize(arrays, device, tiling)
+
+
+def _finalize(arrays: dict, device, tiling: Optional[dict]):
+    graph = graph_from_arrays(arrays, device)
+    if tiling is None:
+        return graph
+    if not isinstance(tiling, dict):
+        raise TypeError(f"tiling must be None or a dict of build_tiling "
+                        f"keys, got {type(tiling).__name__}")
+    from .tiling import build_tiling_from_numpy  # tiling imports this module
+    return build_tiling_from_numpy(graph, arrays, **tiling)

@@ -75,6 +75,13 @@ class HybridPlan:
     def nseg(self) -> int:
         return int(self.seg_row.shape[0])
 
+    @property
+    def fill(self) -> float:
+        """Real edges over the slots the plan stores: dense-block entries
+        plus residual edges."""
+        return (self.dense_edges + self.sparse_edges) / max(
+            self.nb * BS * BS + self.sparse_edges, 1)
+
 
 def build_hybrid_plan(
     row: np.ndarray,

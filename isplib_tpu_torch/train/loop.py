@@ -106,7 +106,8 @@ def train_node_classifier(
     """Train ``model`` full-batch on ``ds`` and evaluate it once.
 
     With ``tile`` (the default) a large CSRGraph on CUDA is tiled first
-    (``auto_tile``), so its SpMMs run the kernels, and a TiledGraph is used
+    (``auto_tile`` at the feature width, which takes a configuration that
+    ``tune_spmm`` recorded), so its SpMMs run the kernels, and a TiledGraph is used
     as it is; without it the SpMMs run the reference path on the plain
     graph, tiled or not.  A ShardedGraph (``dist.partition_rows``) is
     trained on as it is (without ``tile``, on its reference route), its
@@ -129,7 +130,9 @@ def train_node_classifier(
     elif not tile:
         graph = base_graph(graph).to(dev)
     elif not isinstance(graph, TiledGraph):
-        graph = auto_tile(graph.to(dev))
+        # the feature width keys the tune cache, as in the JAX package
+        graph = auto_tile(graph if graph.device == dev else graph.to(dev),
+                          k=int(np.asarray(ds.x).shape[-1]))
     if graph.device != dev:
         raise ValueError(f"the graph is on {graph.device}, not {dev}")
     x = torch.from_numpy(np.asarray(ds.x, np.float32)).to(dev)

@@ -16,12 +16,14 @@ import torch
 import isplib_tpu_torch as pt
 from isplib_tpu_torch.dist import LocalMesh, partition_rows, spmm_sharded
 from isplib_tpu_torch.kernels import (build, fused, fused_bwd, sddmm,
-                                      spmm_bsr, spmm_minmax, spmm_minmax_v4,
+                                      spmm_bsr, spmm_bsr_v3, spmm_minmax,
+                                      spmm_minmax_v4, spmm_rowblock,
                                       spmm_stream, spmm_v2)
 from isplib_tpu_torch.ops.semiring import (FusedOp, Reduce, ReduceOp,
                                            ScalarOp, ScaleOp, VectorOp)
-from isplib_tpu_torch.sparse.tiling import build_tiling
+from isplib_tpu_torch.sparse.tiling import build_plan_v1_arrays, build_tiling
 from isplib_tpu_torch.sparse.tiling_v2 import build_plan_v2_arrays
+from isplib_tpu_torch.sparse.tiling_v3 import build_plan_v3_arrays
 from isplib_tpu_torch.sparse.tiling_v5 import SEG_EDGES
 
 
@@ -120,8 +122,8 @@ def test_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = sorted(p.name for p in build.CSRC.glob("*.cu"))
     assert names == ["fused.cu", "fused_bwd.cu", "sddmm.cu", "spmm_bsr.cu",
-                     "spmm_minmax.cu", "spmm_minmax_v4.cu", "spmm_stream.cu",
-                     "spmm_v2.cu"]
+                     "spmm_bsr_v3.cu", "spmm_minmax.cu", "spmm_minmax_v4.cu",
+                     "spmm_rowblock.cu", "spmm_stream.cu", "spmm_v2.cu"]
 
 
 @pytest.fixture
@@ -395,3 +397,103 @@ def test_sharded_spmm_on_cuda_runs_the_kernels(cuda, version):
                 o2.abs().max())
             assert float((g1 - g2).abs().max()) <= tol * float(
                 g2.abs().max())
+
+
+def coo_of(g):
+    n = g.nnz
+    return (g.row[:n].cpu().numpy(), g.col[:n].cpu().numpy(),
+            g.value[:n].cpu().numpy(), g.num_rows, g.num_cols)
+
+
+def test_v1_v3_wrappers_reject_bad_operands():
+    g = hub_graph("cpu")
+    p1 = build_plan_v1_arrays(*coo_of(g), device="cpu")
+    p3 = build_plan_v3_arrays(*coo_of(g), dense_threshold=16,
+                              device="cpu").bsr
+    for call in (lambda x: spmm_rowblock.spmm_rowblock(p1, x),
+                 lambda x: spmm_bsr_v3.spmm_bsr_v3(p3, x)):
+        with pytest.raises(TypeError):
+            call(torch.zeros(g.num_cols, 8, dtype=torch.float64))
+        with pytest.raises(ValueError):
+            call(torch.zeros(g.num_cols + 1, 8))
+        with pytest.raises(ValueError):
+            call(torch.zeros(8, g.num_cols).t())
+        with pytest.raises(ValueError):
+            call(torch.zeros(g.num_cols, 8, device="meta"))
+    before = (spmm_rowblock.LAUNCHES, spmm_bsr_v3.LAUNCHES)
+    spmm_rowblock.spmm_rowblock(p1, torch.zeros(g.num_cols, 8))
+    spmm_bsr_v3.spmm_bsr_v3(p3, torch.zeros(g.num_cols, 8))
+    assert (spmm_rowblock.LAUNCHES, spmm_bsr_v3.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 32, 41, 130, 602])
+@pytest.mark.parametrize("geometry", [(256, 512, 512), (128, 128, 128),
+                                      (64, 64, 256)])
+def test_rowblock_kernel_matches_plain_version(cuda, geometry, k):
+    """K10: fp32 on both sides, only the sum order differs (atomics where
+    a row block spans several runs of chunks)."""
+    plan = build_plan_v1_arrays(*coo_of(hub_graph("cpu")), *geometry,
+                                device=cuda)
+    x = torch.randn(plan.num_cols, k, device=cuda)
+    before = spmm_rowblock.LAUNCHES
+    got = spmm_rowblock.spmm_rowblock(plan, x)
+    want = spmm_rowblock.spmm_rowblock_plain(plan, x)
+    torch.cuda.synchronize()
+    assert spmm_rowblock.LAUNCHES == before + 1
+    assert_near_plain(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 32, 41, 96, 130, 602])
+@pytest.mark.parametrize("g, vmem", [(4, 6 << 20), (16, 6 << 20),
+                                     (2, 1 << 15)])
+def test_bsr_v3_kernel_matches_plain_version(cuda, g, vmem, k):
+    """K9: the same bf16 rounding on both sides, only the sum order differs;
+    group pads are skipped, several superblocks where vmem is small."""
+    plan = build_plan_v3_arrays(*coo_of(hub_graph("cpu")), rb=128, ct=128,
+                                eb=128, dense_threshold=16, g=g, k=k,
+                                vmem_out_bytes=vmem, device=cuda).bsr
+    assert plan.nb > 0
+    x = torch.randn(plan.num_cols, k, device=cuda)
+    before = spmm_bsr_v3.LAUNCHES
+    got = spmm_bsr_v3.spmm_bsr_v3(plan, x)
+    want = spmm_bsr_v3.spmm_bsr_v3_plain(plan, x)
+    torch.cuda.synchronize()
+    assert spmm_bsr_v3.LAUNCHES == before + 1
+    assert_near_plain(got, want)
+
+
+KERNELS_OF_VERSION = {5: (spmm_bsr, spmm_stream), 4: (spmm_stream,),
+                      3: (spmm_bsr_v3, spmm_v2), 2: (spmm_v2,),
+                      1: (spmm_rowblock,)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("version", [1, 2, 3, 4, 5])
+def test_versions_on_cuda_run_their_kernels(cuda, version):
+    """spmm forward and grad_x through a TiledGraph of each version launch
+    that version's kernels (twice: A, then Aᵀ) and agree with the
+    reference path (2e-2 where bf16 blocks carry edges)."""
+    g = hub_graph(cuda)
+    kw = {3: dict(dense_threshold=16, g=4, rb=128, ct=128),
+          5: dict(dense_threshold=16)}.get(version, {})
+    tiled = build_tiling(g, version=version, k=41, **kw)
+    mods = KERNELS_OF_VERSION[version]
+    w = torch.randn(g.num_rows, 41, device=cuda)
+    outs = []
+    for graph in (tiled, g):
+        x = torch.randn(g.num_cols, 41, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+        x.requires_grad_(True)
+        before = [m.LAUNCHES for m in mods]
+        out = pt.spmm(graph, x, "mean")
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        ran = [m.LAUNCHES - b for m, b in zip(mods, before)]
+        assert ran == [2 if graph is tiled else 0] * len(mods)
+        outs.append((out.detach(), x.grad))
+    tol = 2e-2 if version in (3, 5) else 1e-4
+    for got, want in zip(outs[0], outs[1]):
+        assert float((got - want).abs().max()) <= tol * float(
+            want.abs().max())
