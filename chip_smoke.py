@@ -103,7 +103,10 @@
    empty there) and K10 on both graphs' v1 plans, forward and transposed at
    K = 32, 41 and 602, each against its plain version at
    1e-4·max|plain| and timed beside ``torch.sparse.mm`` of the same edges
-   and the bound (K9's operations at the bf16 tensor-core rate).  Then
+   and the bound (K9's operations at the bf16 tensor-core rate); then the
+   split paths on density-rep's plans, forward and transposed, at the same
+   widths: K9 with its schedule cut into pieces of 4 members and K10 into
+   items of 32 slots, against the plain versions.  Then
    ``auto_tile`` of a fresh CSRGraph of the same
    arrays, which must load the winner's plans from the plan cache (equal
    to the winner's, load time against build time), 10 GCN epochs on it,
@@ -121,6 +124,7 @@ CUDA card it exits 2 and prints no result.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -1103,8 +1107,11 @@ def check_and_time_v3(name, direction, plan, graph, k, gen):
     x_rows = min(used(bcol) * 128, plan.num_cols)
     out_rows = min(used(rblock) * 128, plan.num_rows)
     wide = k > 64
+    pieces = plan.sched.pieces
     return dict(kernel="spmm_bsr_v3", graph=name, direction=direction, k=k,
                 max_abs_err=err, tol=tol, members=members, nb=plan.nb,
+                pieces=int(pieces.shape[0]),
+                split=int(pieces[:, 3].sum()),
                 ms=cuda_ms(lambda: k9.spmm_bsr_v3(plan, x)),
                 plain_ms=cuda_ms(lambda: k9.spmm_bsr_v3_plain(plan, x),
                                  iters=2 if wide else 5, warmup=1),
@@ -1120,6 +1127,7 @@ def check_and_time_v1(name, direction, plan, graph, k, gen):
     only), timed beside ``torch.sparse.mm`` of the same edges and the bound
     (12 B a real edge, the chunk tables, the x rows read, the output)."""
     from isplib_tpu_torch.kernels import spmm_rowblock as k10
+    from isplib_tpu_torch.sparse.tiling import SEG_SLOTS
 
     x = torch.randn(plan.num_cols, k, device=gen.device, generator=gen)
     err, tol = check_near_plain(f"spmm_rowblock {name} {direction} K={k}",
@@ -1128,8 +1136,11 @@ def check_and_time_v1(name, direction, plan, graph, k, gen):
     n = graph.nnz
     lib = csr(graph.rowptr, graph.col[:n], graph.value[:n], graph.shape)
     wide = k > 64
+    s = plan.sched
+    per_row = s.row_ptr.diff()
     return dict(kernel="spmm_rowblock", graph=name, direction=direction, k=k,
                 max_abs_err=err, tol=tol, nc=plan.nc, fill=plan.fill,
+                nseg=s.nseg, split_rows=int((per_row > SEG_SLOTS).sum()),
                 ms=cuda_ms(lambda: k10.spmm_rowblock(plan, x)),
                 plain_ms=cuda_ms(lambda: k10.spmm_rowblock_plain(plan, x),
                                  iters=2 if wide else 5, warmup=1),
@@ -1163,6 +1174,7 @@ def tuner_paths(graphs, cases, drive, train, check, gen):
     versions 3, 1 and 2 on density-rep.  Appends the kernel cases to
     ``cases``; returns the launches of the version-3, -1 and -2 paths."""
     import contextlib
+    import dataclasses
 
     from isplib_tpu_torch import GCN, graph_from_arrays
     from isplib_tpu_torch.kernels.spmm_hybrid import run_plan
@@ -1247,7 +1259,8 @@ def tuner_paths(graphs, cases, drive, train, check, gen):
                 f"ms (plain {r['plain_ms']:.3f}, library "
                 f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
                 f"{r['bound'][1]}), err {r['max_abs_err']:.3g} <= "
-                f"{r['tol']:.3g}; {r['members']} real members of {r['nb']}")
+                f"{r['tol']:.3g}; {r['members']} real members of {r['nb']} "
+                f"in {r['pieces']} pieces, {r['split']} of split row blocks")
     for name, (_, g, _) in graphs.items():
         v1 = kept[(name, 1)]
         for direction, plan, graph in (("fwd", v1.fwd, g),
@@ -1259,7 +1272,48 @@ def tuner_paths(graphs, cases, drive, train, check, gen):
                     f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library "
                     f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
                     f"{r['bound'][1]}), err {r['max_abs_err']:.3g} <= "
-                    f"{r['tol']:.3g}; {r['nc']} chunks, fill {r['fill']:.3f}")
+                    f"{r['tol']:.3g}; {r['nc']} chunks, fill {r['fill']:.3f}, "
+                    f"{r['nseg']} items, {r['split_rows']} split rows")
+
+    # ---- the split paths at full size: density-rep's plans with their hub
+    # row blocks cut into pieces of 4 members (K9) and their rows into items
+    # of 32 slots (K10), so most outputs are added by several CTAs or warps
+    from isplib_tpu_torch.kernels import spmm_bsr_v3 as k9
+    from isplib_tpu_torch.kernels import spmm_rowblock as k10
+    from isplib_tpu_torch.sparse.tiling import derive_row_schedule
+    from isplib_tpu_torch.sparse.tiling_v3 import derive_bsr_schedule
+    v1 = kept[("density-rep", 1)]
+    for direction, p3, p1 in (("fwd", v3.fwd.bsr, v1.fwd),
+                              ("bwd", v3.bwd.bsr, v1.bwd)):
+        p3 = dataclasses.replace(p3, sched=derive_bsr_schedule(
+            p3, piece_members=4))
+        p1 = dataclasses.replace(p1, sched=derive_row_schedule(
+            p1, seg_slots=32))
+        split3 = int(p3.sched.pieces[:, 3].sum())
+        split1 = int((p1.sched.row_ptr.diff() > 32).sum())
+        if not (split3 and split1):
+            raise AssertionError(f"density-rep {direction}: no split pieces "
+                                 f"({split3}) or rows ({split1})")
+        for k in MM_KS:
+            x = torch.randn(p3.num_cols, k, device=gen.device, generator=gen)
+            e3, t3 = check_near_plain(
+                f"spmm_bsr_v3 density-rep {direction} K={k}, pieces of 4",
+                k9.spmm_bsr_v3(p3, x), k9.spmm_bsr_v3_plain(p3, x))
+            e1, t1 = check_near_plain(
+                f"spmm_rowblock density-rep {direction} K={k}, items of 32",
+                k10.spmm_rowblock(p1, x), k10.spmm_rowblock_plain(p1, x))
+            cases.append(dict(kernel="spmm_bsr_v3", graph="density-rep",
+                              direction=direction, case="split", k=k,
+                              max_abs_err=e3))
+            cases.append(dict(kernel="spmm_rowblock", graph="density-rep",
+                              direction=direction, case="split", k=k,
+                              max_abs_err=e1))
+            log(f"split density-rep {direction} K={k}: spmm_bsr_v3 with "
+                f"{p3.sched.n_pieces} pieces of <= 4 members ({split3} of "
+                f"split row blocks), err {e3:.3g} <= {t3:.3g}; spmm_rowblock "
+                f"with {p1.sched.nseg} items of <= 32 slots ({split1} split "
+                f"rows), err {e1:.3g} <= {t1:.3g}")
+        del p3, p1
 
     # ---- auto_tile of a fresh graph takes the winner from both caches -----
     for name, (arrays, g, _) in graphs.items():
@@ -1287,9 +1341,11 @@ def tuner_paths(graphs, cases, drive, train, check, gen):
             f"signature), equal to the winner's, in {load_s:.2f}s against "
             f"{build_s[(name, i)]:.2f}s to build them")
         ver = best["version"]
-        needs = {5: ("spmm_bsr",) if loaded.fwd.nb else ("spmm_stream",),
-                 4: ("spmm_stream",), 3: ("spmm_bsr_v3",), 2: ("spmm_v2",),
-                 1: ("spmm_rowblock",)}[ver]
+        if ver == 5:
+            needs = ("spmm_bsr",) if loaded.fwd.nb else ("spmm_stream",)
+        else:
+            needs = {4: ("spmm_stream",), 3: ("spmm_bsr_v3",),
+                     2: ("spmm_v2",), 1: ("spmm_rowblock",)}[ver]
         label = f"tuned GCN (version {ver})"
         runs, _ = drive(f"{label} path on {name}", needs, lambda: train(
             label, lambda: GCN(FEATURES, hidden=32, num_classes=CLASSES,
@@ -1311,6 +1367,16 @@ def tuner_paths(graphs, cases, drive, train, check, gen):
             lambda n, t=t: t))
         check(label, runs, "nll", 2e-2 if ver == 3 else 1e-4,
               tiled_of=lambda n, t=t: t)
+        # the device's share, which host-bound epoch times hide
+        _, model, res = runs[0]
+        _, busy_ms, per_kernel = profile_epochs(
+            model, t, graphs["density-rep"][0])
+        epoch_ms = res.train_time_avg * 1e3
+        log(f"density-rep {label} profile: device busy {busy_ms:.3f} ms per "
+            f"epoch, idle {100 * (1 - busy_ms / epoch_ms):.1f}% of the "
+            f"{epoch_ms:.3f} ms epoch; "
+            + "; ".join(f"{kn[:48]} {v:.3f}"
+                        for kn, v in list(per_kernel.items())[:6]))
     log(f"phase 9 (tuner and plan versions): "
         f"{time.perf_counter() - t_phase:.1f}s")
     return launches
@@ -1354,6 +1420,11 @@ def smoke() -> int:
     from isplib_tpu_torch.train.loop import _loss_fn
 
     warnings.filterwarnings("ignore", "Sparse CSR tensor support is in beta")
+    # the plan builds' log lines (the v1 and v3 schedules' derivation times)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("plan build: %(message)s"))
+    logging.getLogger("isplib_tpu_torch").addHandler(handler)
+    logging.getLogger("isplib_tpu_torch").setLevel(logging.INFO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()

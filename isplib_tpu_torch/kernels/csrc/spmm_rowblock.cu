@@ -8,158 +8,137 @@
 // matrices per chunk and multiplies them on its matrix unit (in bf16 on the
 // chip); none of that is carried over.
 //
-// What bounds it on an H100: HBM bytes, namely the edge planes (12 B a
-// slot, read once per K tile), the gathered x rows and the output; two
-// operations per edge and feature are far below the fp32 peak.  The design:
-// a CTA takes a run of CHUNKS_PER_CTA consecutive chunks (chunks come row
-// block by row block) and one tile of KT = 32*NK features, and keeps the
-// row block's (rb x KT) fp32 accumulator in shared memory.  The warps share
-// out the run's 32-slot groups; a warp reads its group's planes coalesced,
-// skips pad slots (value 0) through a ballot, broadcasts each slot with
-// shuffles and, lanes over features, gathers the x row from global memory
-// into a running sum per feature, which it adds into the accumulator
-// (shared-memory atomics) when the row changes: a chunk's slots come in row
-// order.  Where the run leaves a row block the accumulator is written out: a
-// row block that lies wholly in the run is stored, each output row once; one
-// that spans several runs is added with atomicAdd into the zeroed output, so
-// its sums are taken in an order that changes from run to run.  Runs rather
-// than one CTA per row block keep the SMs busy on skewed graphs (reddit-sim
-// at rb = 256 has 46 row blocks for 132 SMs, R-MAT hubs in the first).
+// What bounds it on an H100: the gathered x rows (K*4 B a real slot, served
+// from L2 while the K tile's slice of x fits its 50 MB) and the latency of
+// those gathers; the plan's planes are 12 B a slot and two operations per
+// slot and feature are far below the fp32 peak.  The design this replaced
+// (a CTA per run of 32 chunks and K tile of 32 or 64, each warp walking its
+// slots one at a time with one x-row gather in flight, pads read and
+// skipped, an rb x KT shared accumulator fed by shared atomics: 0.8103 ms
+// at K = 32, 9.3745 ms at K = 602 on density-rep) waited on latency at 1-4%
+// of bound.
+//
+// The design: rows are owned, and many gathers are in flight.  The plan's
+// schedule (RowSchedule, derived once per plan) lists each row's real
+// slots in order, one int32 a slot, so pads are never read, and cuts rows
+// into work items of at most 256 slots.  A warp takes one item and one K
+// tile of 32*NK features (up to 128, so K = 602 walks the slots five times
+// where the old design walked them ten): its lanes read 32 slot indices at
+// once and decode them (chunk, column, value) in parallel, then broadcast
+// each slot with shuffles while the lanes run over features; the slot loop is
+// unrolled eight deep with the gathers independent of the sums, so up to
+// 8*NK x-row loads are in flight per warp.  The sum stays in registers and
+// a row that is one item is stored once; the items of a split row (an
+// R-MAT hub) add with atomicAdd into the zeroed output.  The grid's K tile
+// is its slow index, so one tile's slice of x is what L2 holds at a time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int NWARPS = THREADS / 32;
-constexpr int CHUNKS_PER_CTA = 32;
+constexpr int THREADS = 256;  // 8 warps, one work item each
 constexpr unsigned FULL = 0xffffffffu;
 
 template <int NK>
 __global__ void __launch_bounds__(THREADS)
     spmm_rowblock_kernel(const int* __restrict__ edges,
-                         const int* __restrict__ rb_ids,
                          const int* __restrict__ ct_ids,
-                         const int* __restrict__ chunk_starts,
+                         const int* __restrict__ order,
+                         const int* __restrict__ row_ptr,
+                         const int* __restrict__ seg_ptr,
+                         const int* __restrict__ seg_row,
                          const float* __restrict__ x, float* __restrict__ out,
-                         int nc, int eb, int rb, int ct, int num_rows, int k) {
-  constexpr int KT = 32 * NK;
-  extern __shared__ __align__(16) float acc[];  // rb x KT
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k0 = blockIdx.y * KT;
-  const int ch0 = blockIdx.x * CHUNKS_PER_CTA;
-  const int ch1 = min(ch0 + CHUNKS_PER_CTA, nc);
-  bool live_f[NK];
-#pragma unroll
-  for (int t = 0; t < NK; ++t) live_f[t] = k0 + lane + 32 * t < k;
-  for (int i = threadIdx.x; i < rb * KT; i += THREADS) acc[i] = 0.f;
-  __syncthreads();
+                         int nseg, int eb, int ct, int k) {
+  const int item = (blockIdx.x * THREADS + threadIdx.x) >> 5;
+  if (item >= nseg) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  const int f0 = blockIdx.y * 32 * NK + lane;
+  const int e0 = seg_ptr[item], e1 = seg_ptr[item + 1], r = seg_row[item];
 
-  auto add_row = [&](int row, float (&sum)[NK]) {
+  float acc[NK];
 #pragma unroll
-    for (int t = 0; t < NK; ++t) {
-      atomicAdd(acc + row * KT + lane + 32 * t, sum[t]);
-      sum[t] = 0.f;
+  for (int t = 0; t < NK; ++t) acc[t] = 0.f;
+
+  for (int b = e0; b < e1; b += 32) {
+    int c = 0;
+    float v = 0.f;
+    if (b + lane < e1) {  // decode this lane's slot
+      const int q = order[b + lane];
+      const int ch = q / eb, s = q - ch * eb;
+      const int* e = edges + static_cast<size_t>(ch) * 3 * eb + s;
+      c = __ldg(ct_ids + ch) * ct + __ldg(e + eb);
+      v = __int_as_float(__ldg(e + 2 * eb));
     }
-  };
-  const int groups_per_chunk = eb / 32;
-  for (int ch = ch0; ch < ch1;) {  // every test below is block-uniform
-    const int r = rb_ids[ch];
-    const int rb_first = chunk_starts[r], rb_end = chunk_starts[r + 1];
-    const int seg_end = min(ch1, rb_end);
-    const bool whole = rb_first >= ch0 && rb_end <= ch1;
-    const int n_groups = (seg_end - ch) * groups_per_chunk;
-    for (int q = warp; q < n_groups; q += NWARPS) {
-      const int c = ch + q / groups_per_chunk;
-      const int off = (q % groups_per_chunk) * 32 + lane;
-      const int* e = edges + static_cast<size_t>(c) * 3 * eb;
-      const int rl = e[off];
-      const int cl = e[eb + off];
-      const float v = __int_as_float(e[2 * eb + off]);
-      unsigned live = __ballot_sync(FULL, v != 0.f);
-      if (!live) continue;
-      const float* xc = x + static_cast<size_t>(ct_ids[c]) * ct * k + k0 + lane;
-      int row = __shfl_sync(FULL, rl, __ffs(live) - 1);
-      float sum[NK] = {};
-      while (live) {
-        const int j = __ffs(live) - 1;
-        live &= live - 1;
-        const int rj = __shfl_sync(FULL, rl, j);
-        const int cj = __shfl_sync(FULL, cl, j);
-        const float vj = __shfl_sync(FULL, v, j);
-        if (rj != row) {
-          add_row(row, sum);
-          row = rj;
-        }
-        const float* xr = xc + static_cast<size_t>(cj) * k;
+    const int m = min(32, e1 - b);
+#pragma unroll 8
+    for (int j = 0; j < m; ++j) {
+      const int cj = __shfl_sync(FULL, c, j);
+      const float vj = __shfl_sync(FULL, v, j);
+      const float* xr = x + static_cast<size_t>(cj) * k;
 #pragma unroll
-        for (int t = 0; t < NK; ++t)
-          if (live_f[t]) sum[t] = fmaf(vj, xr[32 * t], sum[t]);
+      for (int t = 0; t < NK; ++t) {
+        const int f = f0 + 32 * t;
+        if (f < k) acc[t] = fmaf(vj, __ldg(xr + f), acc[t]);
       }
-      add_row(row, sum);
     }
-    __syncthreads();
-    const int row0 = r * rb;
-    for (int i = threadIdx.x; i < rb * KT; i += THREADS) {
-      const float s = acc[i];
-      acc[i] = 0.f;
-      const int rr = row0 + i / KT, f = k0 + i % KT;
-      if (rr >= num_rows || f >= k) continue;
-      float* o = out + static_cast<size_t>(rr) * k + f;
+  }
+
+  const bool whole = e0 == row_ptr[r] && e1 == row_ptr[r + 1];
+  float* o = out + static_cast<size_t>(r) * k;
+#pragma unroll
+  for (int t = 0; t < NK; ++t) {
+    const int f = f0 + 32 * t;
+    if (f < k) {
       if (whole)
-        *o = s;
-      else if (s != 0.f)
-        atomicAdd(o, s);
+        o[f] = acc[t];
+      else
+        atomicAdd(o + f, acc[t]);
     }
-    __syncthreads();
-    ch = seg_end;
   }
 }
 
 template <int NK>
-size_t smem_bytes(int rb) {
-  return static_cast<size_t>(rb) * 32 * NK * sizeof(float);
-}
-
-template <int NK>
-int launch(const void* edges, const void* rb_ids, const void* ct_ids,
-           const void* chunk_starts, const void* x, void* out, int nc, int eb,
-           int rb, int ct, int num_rows, int k, cudaStream_t stream) {
-  const size_t smem = smem_bytes<NK>(rb);
-  cudaError_t err = cudaFuncSetAttribute(
-      spmm_rowblock_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nc + CHUNKS_PER_CTA - 1) / CHUNKS_PER_CTA,
+int launch(const void* edges, const void* ct_ids, const void* order,
+           const void* row_ptr, const void* seg_ptr, const void* seg_row,
+           const void* x, void* out, int nseg, int eb, int ct, int k,
+           cudaStream_t stream) {
+  const int per_block = THREADS / 32;
+  const dim3 grid((nseg + per_block - 1) / per_block,
                   (k + 32 * NK - 1) / (32 * NK));
-  spmm_rowblock_kernel<NK><<<grid, THREADS, smem, stream>>>(
-      static_cast<const int*>(edges), static_cast<const int*>(rb_ids),
-      static_cast<const int*>(ct_ids), static_cast<const int*>(chunk_starts),
-      static_cast<const float*>(x), static_cast<float*>(out), nc, eb, rb, ct,
-      num_rows, k);
+  spmm_rowblock_kernel<NK><<<grid, THREADS, 0, stream>>>(
+      static_cast<const int*>(edges), static_cast<const int*>(ct_ids),
+      static_cast<const int*>(order), static_cast<const int*>(row_ptr),
+      static_cast<const int*>(seg_ptr), static_cast<const int*>(seg_row),
+      static_cast<const float*>(x), static_cast<float*>(out), nseg, eb, ct,
+      k);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // out (num_rows, k) fp32, zeroed by the caller, = the plan's edges times x
-// (num_cols, k) fp32, on CUDA device `device` and stream `stream`.  K tiles
-// of 64 features (two a lane) where K > 32 and the accumulator fits 100 KB
-// of shared memory, so that two blocks share an SM; else 32.  Returns the
-// CUDA error of the launch (0 = launched).
-extern "C" int spmm_rowblock_launch(const void* edges, const void* rb_ids,
-                                    const void* ct_ids,
-                                    const void* chunk_starts, const void* x,
-                                    void* out, int nc, int eb, int rb, int ct,
-                                    int num_rows, int k, int device,
+// (num_cols, k) fp32, walking the plan's schedule, on CUDA device `device`
+// and stream `stream`.  K tiles of 32, 64, 96 or 128 features (1-4 a lane).
+// Returns the CUDA error of the launch (0 = launched).
+extern "C" int spmm_rowblock_launch(const void* edges, const void* ct_ids,
+                                    const void* order, const void* row_ptr,
+                                    const void* seg_ptr, const void* seg_row,
+                                    const void* x, void* out, int nseg,
+                                    int eb, int ct, int k, int device,
                                     void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k > 32 && smem_bytes<2>(rb) <= 100 * 1024)
-    return launch<2>(edges, rb_ids, ct_ids, chunk_starts, x, out, nc, eb, rb,
-                     ct, num_rows, k, s);
-  return launch<1>(edges, rb_ids, ct_ids, chunk_starts, x, out, nc, eb, rb, ct,
-                   num_rows, k, s);
+  if (k <= 32)
+    return launch<1>(edges, ct_ids, order, row_ptr, seg_ptr, seg_row, x, out,
+                     nseg, eb, ct, k, s);
+  if (k <= 64)
+    return launch<2>(edges, ct_ids, order, row_ptr, seg_ptr, seg_row, x, out,
+                     nseg, eb, ct, k, s);
+  if (k <= 96)
+    return launch<3>(edges, ct_ids, order, row_ptr, seg_ptr, seg_row, x, out,
+                     nseg, eb, ct, k, s);
+  return launch<4>(edges, ct_ids, order, row_ptr, seg_ptr, seg_row, x, out,
+                   nseg, eb, ct, k, s);
 }

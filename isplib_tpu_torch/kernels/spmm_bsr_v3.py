@@ -5,10 +5,12 @@ Counterpart of ``isplib_tpu/kernels/spmm_bsr.py::_bsr_kernel`` (K9, entries
 ``spmm_bsr`` and ``spmm_hybrid``), over the celled ``BSRPlan`` of
 ``build_tiling(version=3)``.  (The port's ``kernels/spmm_bsr`` is K2, the v5
 dense half.)  x is rounded to bf16 as the TPU kernel rounds it, and the
-products are summed in fp32.  The v3 hybrid's residual half (K8) adds into
-the output.  For a CUDA tensor the wrapper launches the kernel or raises;
-the plain version runs only for a CPU tensor (and in ``chip_smoke.py``,
-which holds the kernel against it).
+products are summed in fp32.  The kernel walks the plan's schedule
+(``BSRPlan.sched``): one CTA per row block, or per piece of a hub row
+block, whose sum stays in registers and is stored once.  The v3 hybrid's
+residual half (K8) adds into the output.  For a CUDA tensor the wrapper
+launches the kernel or raises; the plain version runs only for a CPU tensor
+(and in ``chip_smoke.py``, which holds the kernel against it).
 """
 
 from __future__ import annotations
@@ -72,28 +74,40 @@ def spmm_bsr_v3_plain(plan: BSRPlan, x: torch.Tensor) -> torch.Tensor:
 @functools.cache
 def _lib():
     fn = build.load("spmm_bsr_v3").spmm_bsr_v3_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def spmm_bsr_v3(plan: BSRPlan, x: torch.Tensor) -> torch.Tensor:
-    """``out (num_rows, K) = dense blocks @ x``, fp32."""
+    """``out (num_rows, K) = dense blocks @ x``, fp32.
+
+    On CUDA a call is two launches on the current stream, counted as one
+    in ``LAUNCHES``: a pre-pass that rounds x to bf16 into a scratch and
+    zeroes the row blocks the walk does not store whole, then the walk."""
     global LAUNCHES
     _check(plan, x)
     if x.device.type == "cpu":
         return spmm_bsr_v3_plain(plan, x)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_bsr_v3 runs on cuda or cpu, not {x.device}")
+    if plan.sched is None:
+        raise ValueError("the plan has no K9 schedule: build it with "
+                         "build_plan_v3_arrays")
     k = x.shape[1]
-    out = torch.zeros(plan.num_rows, k, dtype=torch.float32, device=x.device)
     if plan.nb == 0 or k == 0:
-        return out
-    err = _lib()(plan.blocks.data_ptr(), plan.rb_locals.data_ptr(),
-                 plan.cell_starts.data_ptr(), x.data_ptr(), out.data_ptr(),
-                 plan.nb // plan.g, plan.n_cells, plan.n_bc, plan.nrb_s,
-                 plan.g, plan.num_rows, plan.num_cols, k, x.device.index,
+        return torch.zeros(plan.num_rows, k, dtype=torch.float32,
+                           device=x.device)
+    s = plan.sched
+    out = torch.empty(plan.num_rows, k, dtype=torch.float32, device=x.device)
+    xb = torch.empty(plan.c_padded, -(-k // 8) * 8, dtype=torch.bfloat16,
+                     device=x.device)
+    err = _lib()(plan.blocks.data_ptr(), s.members.data_ptr(),
+                 s.pieces.data_ptr(), s.zero_rbs.data_ptr(), x.data_ptr(),
+                 xb.data_ptr(), out.data_ptr(), s.n_pieces,
+                 s.zero_rbs.shape[0], plan.g, plan.num_rows, plan.num_cols,
+                 plan.c_padded, k, x.device.index,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"spmm_bsr_v3 launch failed: CUDA error {err}")

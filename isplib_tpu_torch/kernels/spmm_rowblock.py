@@ -4,7 +4,9 @@ version.
 Counterpart of ``isplib_tpu/kernels/spmm_pallas.py::_spmm_rowblock_kernel``
 (K10, entry ``spmm_tiled``), the kernel of ``build_tiling(version=1)``.  The
 port computes in fp32; the TPU kernel multiplies bf16 one-hot matrices on
-the chip.  For a CUDA tensor the wrapper launches the kernel or raises; the
+the chip.  The kernel walks the plan's schedule (``TiledPlan.sched``): a
+warp per work item of one row's real slots, its sum in registers, stored
+once.  For a CUDA tensor the wrapper launches the kernel or raises; the
 plain version runs only for a CPU tensor (and in ``chip_smoke.py``, which
 holds the kernel against it).
 """
@@ -23,10 +25,6 @@ from . import build
 __all__ = ["spmm_rowblock", "spmm_rowblock_plain", "LAUNCHES"]
 
 LAUNCHES = 0  # kernel launches since the count was last set to 0
-
-# shared memory a block may take on Hopper; the kernel keeps an rb x 32
-# fp32 accumulator there
-_SMEM_BYTES = 227 * 1024
 
 
 def _check(plan: TiledPlan, x: torch.Tensor) -> None:
@@ -58,7 +56,7 @@ def spmm_rowblock_plain(plan: TiledPlan, x: torch.Tensor) -> torch.Tensor:
 @functools.cache
 def _lib():
     fn = build.load("spmm_rowblock").spmm_rowblock_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -72,17 +70,18 @@ def spmm_rowblock(plan: TiledPlan, x: torch.Tensor) -> torch.Tensor:
         return spmm_rowblock_plain(plan, x)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_rowblock runs on cuda or cpu, not {x.device}")
-    if plan.rb * 32 * 4 > _SMEM_BYTES:
-        raise ValueError(f"rb={plan.rb}: the row block's accumulator does not "
-                         "fit a block's shared memory")
+    if plan.sched is None:
+        raise ValueError("the plan has no K10 schedule: build it with "
+                         "build_plan_v1_arrays")
     k = x.shape[1]
     out = torch.zeros(plan.num_rows, k, dtype=torch.float32, device=x.device)
-    if plan.nc == 0 or k == 0:
+    s = plan.sched
+    if s.nseg == 0 or k == 0:
         return out
-    err = _lib()(plan.edges.data_ptr(), plan.rb_ids.data_ptr(),
-                 plan.ct_ids.data_ptr(), plan.chunk_starts.data_ptr(),
-                 x.data_ptr(), out.data_ptr(), plan.nc, plan.eb, plan.rb,
-                 plan.ct, plan.num_rows, k, x.device.index,
+    err = _lib()(plan.edges.data_ptr(), plan.ct_ids.data_ptr(),
+                 s.order.data_ptr(), s.row_ptr.data_ptr(),
+                 s.seg_ptr.data_ptr(), s.seg_row.data_ptr(), x.data_ptr(),
+                 out.data_ptr(), s.nseg, plan.eb, plan.ct, k, x.device.index,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"spmm_rowblock launch failed: CUDA error {err}")

@@ -35,8 +35,9 @@ __all__ = ["plan_cache_path", "save_host_plans", "load_host_plans",
            "default_cache_dir", "graph_fingerprint", "tree_to",
            "PLAN_FORMAT_VERSION"]
 
-# Bump when a plan layout or a plan dataclass changes incompatibly.
-PLAN_FORMAT_VERSION = 1
+# Bump when a plan layout or a plan dataclass changes incompatibly.  2: the
+# v1 and v3 plans carry their kernels' schedules (``sched``).
+PLAN_FORMAT_VERSION = 2
 
 _MODULE_PREFIX = "isplib_tpu_torch."
 

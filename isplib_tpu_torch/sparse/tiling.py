@@ -32,7 +32,9 @@ relies on; the JAX package's default is 2.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import sys
+import time
 import weakref
 from typing import Optional, Union
 
@@ -46,15 +48,19 @@ from .tiling_v3 import HybridPlanV3, build_plan_v3_arrays
 from .tiling_v4mm import MinMaxPlan, build_minmax_plan
 from .tiling_v5 import HybridPlan, build_hybrid_plan
 
-__all__ = ["TiledPlan", "TiledGraph", "build_tiling",
+__all__ = ["TiledPlan", "RowSchedule", "TiledGraph", "build_tiling",
            "build_tiling_from_numpy", "save_tiling", "auto_tile",
-           "base_graph", "AUTO_TILE_MIN_NNZ", "PLAN_KEYS"]
+           "derive_row_schedule", "base_graph", "AUTO_TILE_MIN_NNZ",
+           "PLAN_KEYS", "SEG_SLOTS"]
 
 # Below this edge count the reference path is fast enough and the plan
 # build would dominate (the JAX package's threshold).
 AUTO_TILE_MIN_NNZ = 1_000_000
 
 _LANE = 128
+SEG_SLOTS = 256  # real slots a K10 warp takes at most (one row's)
+
+_log = logging.getLogger(__name__)
 
 # The keys that shape each version's plan in the port.  The JAX package's
 # v5 keys rb, S, g and gd shape its column stripes and DMA groups, which the
@@ -76,6 +82,27 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class RowSchedule:
+    """K10's walk over a ``TiledPlan``, derived from its JAX-equal arrays.
+
+    ``order`` (n_real,) int32: every real slot (value not 0) as its flat
+    index ``chunk·eb + slot``, sorted by (global row, flat index), so pad
+    slots are never read; ``row_ptr`` (num_rows + 1,) int32: each row's
+    range in ``order``; ``seg_ptr`` (nseg + 1,) and ``seg_row`` (nseg,)
+    int32: the rows cut into work items of at most ``SEG_SLOTS`` slots (a
+    row without slots has none)."""
+
+    order: torch.Tensor
+    row_ptr: torch.Tensor
+    seg_ptr: torch.Tensor
+    seg_row: torch.Tensor
+
+    @property
+    def nseg(self) -> int:
+        return int(self.seg_row.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
 class TiledPlan:
     """Chunked edge list (v1) for one direction, grouped by row block.
 
@@ -85,7 +112,8 @@ class TiledPlan:
     give each chunk's row block and column tile, ``chunk_starts`` (nrb + 1,)
     each row block's chunk range.  A chunk holds the edges of one (row
     block, column tile) bucket in row order; a row block with no edges has
-    one all-pad chunk.  ``fill`` is real edges over chunk slots.
+    one all-pad chunk.  ``fill`` is real edges over chunk slots.  ``sched``
+    is K10's schedule, beside those arrays.
     """
 
     edges: torch.Tensor         # (nc, 3, eb/128, 128) int32
@@ -99,6 +127,7 @@ class TiledPlan:
     num_rows: int
     num_cols: int
     fill: float = 1.0
+    sched: Optional[RowSchedule] = None
 
     @property
     def nrb(self) -> int:
@@ -193,11 +222,48 @@ def build_plan_v1_arrays(row: np.ndarray, col: np.ndarray, val: np.ndarray,
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
-    return TiledPlan(edges=i32(edges), rb_ids=i32(rb_ids[order2]),
+    plan = TiledPlan(edges=i32(edges), rb_ids=i32(rb_ids[order2]),
                      ct_ids=i32(ct_ids[order2]),
                      chunk_starts=i32(chunk_starts), rb=rb, ct=ct, eb=eb,
                      nc=nc, num_rows=num_rows, num_cols=num_cols,
                      fill=float(nnz) / max(nc * eb, 1))
+    t0 = time.perf_counter()
+    plan = dataclasses.replace(plan, sched=derive_row_schedule(plan))
+    _log.info("v1 schedule: %d real slots of %d in %d segments; derived in "
+              "%.3fs", plan.sched.order.shape[0], nc * eb, plan.sched.nseg,
+              time.perf_counter() - t0)
+    return plan
+
+
+def derive_row_schedule(plan: TiledPlan,
+                        seg_slots: int = SEG_SLOTS) -> RowSchedule:
+    """K10's schedule of ``plan``, from ``edges`` and ``rb_ids`` alone, on
+    the plan's device."""
+    if plan.nc * plan.eb >= 2**31:
+        raise ValueError(f"{plan.nc * plan.eb} slots: K10's int32 slot "
+                         "index overflows")
+    dev = plan.device
+    e = plan.edges.reshape(plan.nc, 3, plan.eb)
+    real = torch.nonzero(e[:, 2].reshape(-1).view(torch.float32) != 0
+                         ).reshape(-1)
+    row = (plan.rb_ids.long()[:, None] * plan.rb
+           + e[:, 0].long()).reshape(-1)[real]
+    order = real[torch.argsort(row, stable=True)]
+    cnt = torch.bincount(row, minlength=plan.num_rows)
+    row_ptr = torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)])
+    nseg = (cnt + seg_slots - 1) // seg_slots
+    seg_row = torch.repeat_interleave(
+        torch.arange(plan.num_rows, device=dev), nseg)
+    i = (torch.arange(seg_row.shape[0], device=dev)
+         - (torch.cumsum(nseg, 0) - nseg)[seg_row])
+    seg_ptr = torch.cat([row_ptr[seg_row] + i * seg_slots,
+                         row_ptr[-1:]])
+
+    def i32(t):
+        return t.to(torch.int32).contiguous()
+
+    return RowSchedule(order=i32(order), row_ptr=i32(row_ptr),
+                       seg_ptr=i32(seg_ptr), seg_row=i32(seg_row))
 
 
 SumPlan = Union[HybridPlan, HybridPlanV3, TiledPlanV2, TiledPlan]

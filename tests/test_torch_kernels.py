@@ -21,7 +21,8 @@ from isplib_tpu_torch.kernels import (build, fused, fused_bwd, sddmm,
                                       spmm_stream, spmm_v2)
 from isplib_tpu_torch.ops.semiring import (FusedOp, Reduce, ReduceOp,
                                            ScalarOp, ScaleOp, VectorOp)
-from isplib_tpu_torch.sparse.tiling import build_plan_v1_arrays, build_tiling
+from isplib_tpu_torch.sparse.tiling import (SEG_SLOTS, build_plan_v1_arrays,
+                                            build_tiling)
 from isplib_tpu_torch.sparse.tiling_v2 import build_plan_v2_arrays
 from isplib_tpu_torch.sparse.tiling_v3 import build_plan_v3_arrays
 from isplib_tpu_torch.sparse.tiling_v5 import SEG_EDGES
@@ -426,15 +427,53 @@ def test_v1_v3_wrappers_reject_bad_operands():
     assert (spmm_rowblock.LAUNCHES, spmm_bsr_v3.LAUNCHES) == before
 
 
+def split_graph(device, num_rows=1000, num_cols=5000):
+    """Row block 0 dense over all 40 block columns (a hub row block: more
+    members than a K9 piece takes), row 5 a hub row of 600 edges (more
+    slots than a K10 work item takes), uniform edges elsewhere, and rows
+    384-511 without edges (empty row blocks at 128 and below)."""
+    rng = np.random.default_rng(1)
+    row = np.concatenate([rng.integers(0, 128, 40 * 40),
+                          rng.integers(0, num_rows, 1500),
+                          np.full(600, 5)])
+    col = np.concatenate([np.repeat(np.arange(40) * 124, 40)
+                          + rng.integers(0, 124, 40 * 40),
+                          rng.integers(0, num_cols, 1500),
+                          rng.integers(0, num_cols, 600)])
+    keep = (row < 384) | (row >= 512)
+    row, col = row[keep], col[keep]
+    val = rng.normal(size=row.shape[0]).astype(np.float32)
+    return pt.from_edge_index(np.stack([col, row]), num_nodes=num_rows,
+                              num_src_nodes=num_cols, edge_value=val,
+                              edge_multiple=128, device=device)
+
+
+def coo_case(variant, direction):
+    """(row, col, val, num_rows, num_cols) of a test graph or of its
+    transpose, on the host."""
+    g = hub_graph("cpu") if variant == "hub" else split_graph("cpu")
+    row, col, val, r, c = coo_of(g)
+    if direction == "bwd":
+        order = np.lexsort((row, col))
+        return col[order], row[order], val[order], c, r
+    return row, col, val, r, c
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 32, 41, 130, 602])
+@pytest.mark.parametrize("k", [1, 8, 32, 41, 130, 602])
 @pytest.mark.parametrize("geometry", [(256, 512, 512), (128, 128, 128),
                                       (64, 64, 256)])
-def test_rowblock_kernel_matches_plain_version(cuda, geometry, k):
-    """K10: fp32 on both sides, only the sum order differs (atomics where
-    a row block spans several runs of chunks)."""
-    plan = build_plan_v1_arrays(*coo_of(hub_graph("cpu")), *geometry,
+@pytest.mark.parametrize("variant", ["hub", "split"])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_rowblock_kernel_matches_plain_version(cuda, geometry, k, variant,
+                                               direction):
+    """K10: fp32 on both sides, only the sum order differs (atomics where a
+    row is cut into several work items); hub rows, empty rows and row
+    blocks, the plans of A and of Aᵀ."""
+    plan = build_plan_v1_arrays(*coo_case(variant, direction), *geometry,
                                 device=cuda)
+    if variant == "split" and direction == "fwd":
+        assert int(plan.sched.row_ptr.diff().max()) > SEG_SLOTS
     x = torch.randn(plan.num_cols, k, device=cuda)
     before = spmm_rowblock.LAUNCHES
     got = spmm_rowblock.spmm_rowblock(plan, x)
@@ -445,16 +484,24 @@ def test_rowblock_kernel_matches_plain_version(cuda, geometry, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 32, 41, 96, 130, 602])
+@pytest.mark.parametrize("k", [1, 8, 32, 41, 96, 130, 602])
 @pytest.mark.parametrize("g, vmem", [(4, 6 << 20), (16, 6 << 20),
                                      (2, 1 << 15)])
-def test_bsr_v3_kernel_matches_plain_version(cuda, g, vmem, k):
-    """K9: the same bf16 rounding on both sides, only the sum order differs;
-    group pads are skipped, several superblocks where vmem is small."""
-    plan = build_plan_v3_arrays(*coo_of(hub_graph("cpu")), rb=128, ct=128,
-                                eb=128, dense_threshold=16, g=g, k=k,
+@pytest.mark.parametrize("variant", ["hub", "split"])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_bsr_v3_kernel_matches_plain_version(cuda, g, vmem, k, variant,
+                                             direction):
+    """K9: the same bf16 rounding on both sides, only the sum order differs
+    (atomics where a hub row block is cut into pieces); group pads are
+    skipped, several superblocks where vmem is small, row blocks without
+    members are zeroed, the plans of A and of Aᵀ."""
+    plan = build_plan_v3_arrays(*coo_case(variant, direction), rb=128,
+                                ct=128, eb=128, dense_threshold=16, g=g, k=k,
                                 vmem_out_bytes=vmem, device=cuda).bsr
     assert plan.nb > 0
+    if variant == "split" and direction == "fwd":
+        assert int(plan.sched.pieces[:, 3].sum()) > 0
+        assert plan.sched.zero_rbs.numel() > 0
     x = torch.randn(plan.num_cols, k, device=cuda)
     before = spmm_bsr_v3.LAUNCHES
     got = spmm_bsr_v3.spmm_bsr_v3(plan, x)

@@ -16,6 +16,12 @@
   ``grad_x`` and ``grad_value``, against JAX's XLA path and ``jax.grad``:
   1e-5 for the fp32 versions 1, 2 and 4, the bf16 contract (rtol 2e-2,
   atol 2e-2·max|ref|) for versions 3 and 5, whose dense blocks are bf16;
+* K9's and K10's schedules against a numpy recount from the JAX plan's
+  own arrays (members, row blocks, block columns, pieces; slot order, row
+  pointers, work items), and a plain walk over each against the kernels'
+  plain versions and the interpret-mode Pallas kernels (1e-5 of the
+  scale), on a hub case with a split row block, a split row and an empty
+  row block;
 * a forward-only tiling runs the reference transpose path for ``grad_x``;
   ``build_tiling`` rejects keys foreign to a version; ``tiling=`` on graph
   construction.
@@ -45,7 +51,7 @@ from isplib_tpu.sparse.tiling_v3 import build_plan_v3_arrays as jax_build_v3
 from isplib_tpu_torch.kernels import spmm_hybrid
 from isplib_tpu_torch.kernels.spmm_bsr_v3 import spmm_bsr_v3_plain
 from isplib_tpu_torch.kernels.spmm_rowblock import spmm_rowblock_plain
-from isplib_tpu_torch.sparse import tiling_v3
+from isplib_tpu_torch.sparse import tiling, tiling_v3
 from isplib_tpu_torch.sparse.tiling import (TiledGraph, TiledPlan,
                                             build_plan_v1_arrays,
                                             build_tiling)
@@ -371,3 +377,221 @@ def test_graph_construction_builds_the_tiling(how):
     with pytest.raises(TypeError):
         pt.from_scipy(mat if how == "scipy" else sp.eye(4), device="cpu",
                       tiling=(128, 128, 128))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' schedules (K9's pieces, K10's row order) against a numpy
+# recount from the JAX plan's own arrays, and a plain walk over each
+# ---------------------------------------------------------------------------
+
+def hub_coo():
+    """Row block 0 dense over 40 block columns (a hub row block of more
+    members than a K9 piece takes), row 3 a hub row of 700 edges (more
+    slots than a K10 work item takes), a few uniform edges, and rows
+    256-383 without edges (an empty row block)."""
+    rng = np.random.default_rng(11)
+    num_rows, num_cols = 640, 5120
+    row = np.concatenate([rng.integers(0, 128, 40 * 24),
+                          rng.integers(0, num_rows, 900), np.full(700, 3)])
+    col = np.concatenate([np.repeat(np.arange(40) * 128, 24)
+                          + rng.integers(0, 128, 40 * 24),
+                          rng.integers(0, num_cols, 900),
+                          rng.integers(0, num_cols, 700)])
+    keep = (row < 256) | (row >= 384)
+    row, col = row[keep], col[keep]
+    val = rng.normal(size=row.shape[0]).astype(np.float32)
+    order = np.lexsort((col, row))
+    return row[order], col[order], val[order], num_rows, num_cols
+
+
+SCHEDULE_V3_CASES = {**V3_CASES,
+                     "hub": dict(rb=128, ct=128, eb=128, dense_threshold=12,
+                                 g=4, k=32, vmem_out_bytes=1 << 16)}
+
+
+def v3_case(case):
+    row, col, val, r, c = hub_coo() if case == "hub" else coo()
+    return (row, col, val, r, c), SCHEDULE_V3_CASES[case]
+
+
+def v3_recount(jb):
+    """(row block, block column, member) of every real member of a JAX
+    BSRPlan, by the rule K9's first form used: a cell's members are
+    real up to the first whose rb_local does not rise."""
+    rbl, cs, g = np.asarray(jb.rb_locals), np.asarray(jb.cell_starts), jb.g
+    n_bc = -(-jb.num_cols // 128)
+    real = []
+    for cell in range(cs.shape[0] - 1):
+        s, bc = divmod(cell, n_bc)
+        lo, hi = int(cs[cell]) * g, int(cs[cell + 1]) * g
+        for m in range(lo, hi):
+            if m > lo and rbl[m] <= rbl[m - 1]:
+                break
+            real.append((s * jb.nrb_s + int(rbl[m]), bc, m))
+    return sorted(real)
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULE_V3_CASES))
+def test_v3_schedule_matches_a_recount(case):
+    """Members, row blocks, block columns and order from the JAX plan's
+    arrays; pieces cover every real member once, within one row block,
+    at most PIECE_MEMBERS each, longest first; zeroed row blocks."""
+    args, kw = v3_case(case)
+    p = build_plan_v3_arrays(*args, device="cpu", **kw).bsr
+    jb = jax_build_v3(*args, **kw).bsr
+    s = p.sched
+    want = v3_recount(jb)
+    members = s.members.numpy()
+    rblock = {m: rb for rb, _, m in want}
+    got = [(rblock[m], bc, m) for m, bc in members]
+    assert got == want
+    pieces = s.pieces.numpy()
+    covered = np.concatenate([np.arange(a, b) for a, b, _, _ in pieces])
+    np.testing.assert_array_equal(np.sort(covered), np.arange(len(want)))
+    sizes = pieces[:, 1] - pieces[:, 0]
+    assert sizes.min() >= 1 and sizes.max() <= tiling_v3.PIECE_MEMBERS
+    assert (np.diff(sizes) <= 0).all()
+    cnt = np.bincount([rb for rb, _, _ in want], minlength=p.n_br)
+    for a, b, rb, split in pieces:
+        assert {x[0] for x in got[a:b]} == {rb}
+        assert split == (cnt[rb] > tiling_v3.PIECE_MEMBERS)
+    n_pieces = -(-cnt // tiling_v3.PIECE_MEMBERS)
+    assert n_pieces.sum() == pieces.shape[0]
+    np.testing.assert_array_equal(
+        s.zero_rbs.numpy(),
+        np.flatnonzero((cnt == 0) | (cnt > tiling_v3.PIECE_MEMBERS)))
+    if case == "hub":
+        assert pieces[:, 3].any() and (cnt == 0).any()
+
+
+@pytest.mark.parametrize("piece_members", [0, 65])
+def test_v3_schedule_rejects_pieces_k9_cannot_hold(piece_members):
+    """K9 keeps a piece's member list in shared memory: 1 to 64."""
+    args, kw = v3_case("hub")
+    p = build_plan_v3_arrays(*args, device="cpu", **kw).bsr
+    with pytest.raises(ValueError, match="piece_members"):
+        tiling_v3.derive_bsr_schedule(p, piece_members=piece_members)
+    s = tiling_v3.derive_bsr_schedule(p, piece_members=64)
+    assert int((s.pieces[:, 1] - s.pieces[:, 0]).max()) <= 64
+
+
+def walk_v3(plan, x):
+    """K9's walk in plain PyTorch: each piece sums its members' bf16 blocks
+    times the bf16-rounded x tiles of their block columns, in fp32, and
+    adds the sum into its row block."""
+    s, g, k = plan.sched, plan.g, x.shape[1]
+    xb = x.new_zeros(plan.c_padded, k)
+    xb[: plan.num_cols] = x.to(torch.bfloat16).float()
+    out = x.new_zeros(plan.n_br * 128, k)
+    for a, b, rb, _ in s.pieces.tolist():
+        acc = x.new_zeros(128, k)
+        for m, bc in s.members[a:b].tolist():
+            blk = plan.blocks[m // g, :, (m % g) * 128:(m % g + 1) * 128]
+            acc += blk.float().t() @ xb[bc * 128:(bc + 1) * 128]
+        out[rb * 128:(rb + 1) * 128] += acc
+    return out[: plan.num_rows]
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULE_V3_CASES))
+def test_v3_schedule_walk_matches_plain_version(case):
+    args, kw = v3_case(case)
+    p = build_plan_v3_arrays(*args, device="cpu", **kw).bsr
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(p.num_cols, 24)).astype(np.float32))
+    scale_close(walk_v3(p, x), spmm_bsr_v3_plain(p, x), 1e-5)
+
+
+def test_v3_schedule_walk_matches_pallas():
+    """The hub case, whose row block 0 is split and row block 2 empty,
+    against the interpret-mode Pallas ``spmm_bsr``."""
+    args, kw = v3_case("hub")
+    p = build_plan_v3_arrays(*args, device="cpu", **kw).bsr
+    jb = jax_build_v3(*args, **kw).bsr
+    x = np.random.default_rng(13).normal(size=(p.num_cols, 8)).astype(
+        np.float32)
+    scale_close(walk_v3(p, torch.from_numpy(x)),
+                jax_spmm_bsr(jb, jnp.asarray(x)), 1e-5)
+
+
+V1_SCHEDULE_CASES = {"256-512-512": ("coo", (256, 512, 512)),
+                     "128-128-128": ("coo", (128, 128, 128)),
+                     "64-64-256": ("coo", (64, 64, 256)),
+                     "hub": ("hub", (128, 256, 256))}
+
+
+def v1_case(case):
+    graph, geometry = V1_SCHEDULE_CASES[case]
+    return (hub_coo() if graph == "hub" else coo()), geometry
+
+
+def v1_recount(jp):
+    """(global row, flat slot) of every real slot of a JAX v1 plan, sorted
+    as the schedule orders them."""
+    e = np.asarray(jp.edges).reshape(jp.nc, 3, jp.eb)
+    rb_ids = np.asarray(jp.rb_ids)
+    val = e[:, 2].view(np.float32)
+    c, s = np.nonzero(val != 0)
+    row = rb_ids[c].astype(np.int64) * jp.rb + e[c, 0, s]
+    return sorted(zip(row.tolist(), (c * jp.eb + s).tolist()))
+
+
+@pytest.mark.parametrize("case", sorted(V1_SCHEDULE_CASES))
+def test_v1_schedule_matches_a_recount(case):
+    """Slot order and row pointers from the JAX plan's planes (pads never
+    listed); work items cover each row's slots once, at most SEG_SLOTS
+    each, in order."""
+    (row, col, val, r, c), geometry = v1_case(case)
+    p = build_plan_v1_arrays(row, col, val, r, c, *geometry, device="cpu")
+    jp = jax_build_v1(row, col, val, r, c, *geometry)
+    s = p.sched
+    want = v1_recount(jp)
+    np.testing.assert_array_equal(s.order.numpy(), [q for _, q in want])
+    cnt = np.bincount([rw for rw, _ in want], minlength=r)
+    np.testing.assert_array_equal(s.row_ptr.numpy(),
+                                  np.concatenate([[0], np.cumsum(cnt)]))
+    seg_ptr, seg_row = s.seg_ptr.numpy(), s.seg_row.numpy()
+    want_seg = [(rw, a, min(a + tiling.SEG_SLOTS, s.row_ptr[rw + 1].item()))
+                for rw in range(r)
+                for a in range(int(s.row_ptr[rw]), int(s.row_ptr[rw + 1]),
+                               tiling.SEG_SLOTS)]
+    assert list(zip(seg_row.tolist(), seg_ptr[:-1].tolist(),
+                    seg_ptr[1:].tolist())) == want_seg
+    if case == "hub":
+        assert cnt.max() > tiling.SEG_SLOTS and (cnt == 0).any()
+        assert p.chunk_starts.diff().min() >= 1  # the empty row block's pad
+
+
+def walk_v1(plan, x):
+    """K10's walk in plain PyTorch: each work item sums its slots' values
+    times the x rows of their global columns into its row."""
+    s = plan.sched
+    e = plan.edges.reshape(plan.nc, 3, plan.eb)
+    out = x.new_zeros(plan.num_rows, x.shape[1])
+    for j, rw in enumerate(s.seg_row.tolist()):
+        q = s.order[s.seg_ptr[j]:s.seg_ptr[j + 1]].long()
+        ch, sl = q // plan.eb, q % plan.eb
+        col = plan.ct_ids[ch].long() * plan.ct + e[ch, 1, sl].long()
+        val = e[ch, 2, sl].view(torch.float32)
+        out[rw] += (val[:, None] * x[col]).sum(0)
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(V1_SCHEDULE_CASES))
+def test_v1_schedule_walk_matches_plain_version(case):
+    (row, col, val, r, c), geometry = v1_case(case)
+    p = build_plan_v1_arrays(row, col, val, r, c, *geometry, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(14).normal(
+        size=(c, 24)).astype(np.float32))
+    scale_close(walk_v1(p, x), spmm_rowblock_plain(p, x), 1e-5)
+
+
+def test_v1_schedule_walk_matches_pallas():
+    """The hub case, a row split over work items and an empty row block,
+    against the interpret-mode Pallas ``spmm_tiled`` in fp32."""
+    (row, col, val, r, c), geometry = v1_case("hub")
+    p = build_plan_v1_arrays(row, col, val, r, c, *geometry, device="cpu")
+    jp = jax_build_v1(row, col, val, r, c, *geometry)
+    x = np.random.default_rng(15).normal(size=(c, 8)).astype(np.float32)
+    want = jax_spmm_tiled(jp, jnp.asarray(x), compute_dtype=jnp.float32,
+                          precision=jax.lax.Precision.HIGHEST)
+    scale_close(walk_v1(p, torch.from_numpy(x)), want, 1e-5)

@@ -311,6 +311,56 @@ def test_auto_tile_loads_plans_from_the_plan_cache(tileable, monkeypatch):
         same_plan(getattr(again, f), getattr(first, f))
 
 
+def test_tuned_winner_at_the_feature_width_trains_on_its_plans(tileable,
+                                                              monkeypatch):
+    """``tune_spmm`` records its winner at a dataset's feature width;
+    ``train_node_classifier``, which auto-tiles at that width, then trains
+    on that configuration's plans, loaded from the plan cache (nothing is
+    built again), and its SpMMs run that version's kernel."""
+    from isplib_tpu_torch import GCN, train_node_classifier
+    from isplib_tpu_torch.data import NodeDataset
+    from isplib_tpu_torch.kernels import spmm_hybrid
+
+    feats = 24
+    g = graph()
+    best, tiled = autotune.tune_spmm(
+        g, host_arrays(g), k=feats, configs=[ONE_PER_VERSION[4]], iters=2,
+        include_reference=False, verbose=False)
+    assert best["backend"] == "kernels" and best["version"] == 1
+    assert autotune.lookup(autotune.signature_of(g, feats)) == best
+
+    def no_build(*args, **kw):
+        raise AssertionError("a plan was built again")
+
+    monkeypatch.setattr(tiling, "_build_fn", no_build)
+    monkeypatch.setattr(tiling, "build_minmax_plan", no_build)
+    ran = []
+
+    def counting(plan, x, run=spmm_hybrid.spmm_rowblock):
+        ran.append(plan)
+        return run(plan, x)
+
+    monkeypatch.setattr(spmm_hybrid, "spmm_rowblock", counting)
+    rng = np.random.default_rng(0)
+    fresh = graph()  # the same arrays, a new graph: auto_tile's memo misses
+    n = fresh.num_rows
+    mask = np.ones(n, bool)
+    ds = NodeDataset(name="tuned", graph=fresh,
+                     x=rng.normal(size=(n, feats)).astype(np.float32),
+                     y=rng.integers(0, 3, n).astype(np.int32),
+                     train_mask=mask, val_mask=mask, test_mask=mask,
+                     num_classes=3)
+    model = GCN(feats, hidden=8, num_classes=3, seed=0, device="cpu")
+    res = train_node_classifier(model, ds, epochs=2, device="cpu")
+    assert np.all(np.isfinite(res.losses))
+    assert ran  # forward over A and grad_x over Aᵀ, every epoch
+    for plan in ran:
+        assert (plan.rb, plan.ct, plan.eb) == (128, 128, 128)
+    same_plan(ran[0], tiled.fwd)
+    assert any(p.num_rows == tiled.bwd.num_rows and torch.equal(
+        p.edges, tiled.bwd.edges) for p in ran[1:])
+
+
 # ---------------------------------------------------------------------------
 # plan cache
 # ---------------------------------------------------------------------------
@@ -348,6 +398,35 @@ def test_plan_cache_roundtrip_keeps_dtypes(cfg, tmp_path, monkeypatch):
         blocks = (loaded.fwd.bsr.blocks if cfg["version"] == 3
                   else loaded.fwd.blocks)
         assert blocks.dtype == torch.bfloat16 and blocks.numel() > 0
+
+
+@pytest.mark.parametrize("cfg", [ONE_PER_VERSION[4], ONE_PER_VERSION[2]],
+                         ids=["v1", "v3"])
+def test_plan_cache_keeps_the_schedules(cfg, tmp_path, monkeypatch):
+    """The v1 and v3 plans carry K10's and K9's schedules; the cache
+    stores and loads them under format 2, and an entry written under
+    format 1 (plans without schedules) is missed, never read."""
+    assert plan_cache.PLAN_FORMAT_VERSION == 2
+    g = graph()
+    arrays = host_arrays(g)
+
+    def sched(plan):
+        return plan.sched if cfg["version"] == 1 else plan.bsr.sched
+
+    monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 1)
+    build_tiling_from_numpy(g, arrays, k=32, cache_tag="s",
+                            cache_dir=str(tmp_path), **cfg)
+    monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 2)
+    built = build_tiling_from_numpy(g, arrays, k=32, cache_tag="s",
+                                    cache_dir=str(tmp_path), **cfg)
+    assert len(list(tmp_path.glob("plan_s_*.npz"))) == 2
+    monkeypatch.setattr(tiling, "_build_fn", lambda *a: (
+        lambda *b: pytest.fail("rebuilt")))
+    loaded = build_tiling_from_numpy(g, arrays, k=32, cache_tag="s",
+                                     cache_dir=str(tmp_path), **cfg)
+    for f in ("fwd", "bwd"):
+        assert sched(getattr(loaded, f)) is not None
+        same_plan(sched(getattr(loaded, f)), sched(getattr(built, f)))
 
 
 def test_plan_cache_keys_differ_for_different_edges(tmp_path):
