@@ -104,9 +104,12 @@
    K = 32, 41 and 602, each against its plain version at
    1e-4·max|plain| and timed beside ``torch.sparse.mm`` of the same edges
    and the bound (K9's operations at the bf16 tensor-core rate); then the
-   split paths on density-rep's plans, forward and transposed, at the same
-   widths: K9 with its schedule cut into pieces of 4 members and K10 into
-   items of 32 slots, against the plain versions.  Then
+   same for K8 on density-rep's full version-2 plan (256/512/512) and on
+   its version-3 residual; then the split paths on density-rep's plans,
+   forward and transposed, at the same widths: K9 with its schedule cut
+   into pieces of 4 members, K2 (on the ``auto_tile`` plans of step 2)
+   into pieces of 4 blocks, and K10 and K8 into items of 32 slots (K8 also
+   adding into an output it is given), against the plain versions.  Then
    ``auto_tile`` of a fresh CSRGraph of the same
    arrays, which must load the winner's plans from the plan cache (equal
    to the winner's, load time against build time), 10 GCN epochs on it,
@@ -810,9 +813,10 @@ def v2_bound(plan, k: int, real_edges: int, out_bytes_per: int):
 
 
 def check_and_time_v2(name, case, plan, k, gen):
-    """K8 on one shard plan at K: against its plain version (fp32, sum
-    order only: 1e-4·max|plain|) and timed beside ``torch.sparse.mm`` of
-    the same edges and the bound."""
+    """K8 on one v2 plan at K (a shard plan, a full version-2 plan or a
+    version-3 residual): against its plain version (fp32, sum order only:
+    1e-4·max|plain|) and timed beside ``torch.sparse.mm`` of the same edges
+    and the bound."""
     from isplib_tpu_torch.kernels import spmm_v2 as k8
 
     x = torch.randn(plan.num_cols, k, device=gen.device, generator=gen)
@@ -828,7 +832,7 @@ def check_and_time_v2(name, case, plan, k, gen):
     wide = k > 64
     return dict(kernel="spmm_v2", graph=name, case=case, k=k,
                 max_abs_err=err, tol=tol, fill=plan.fill, nc=plan.nc,
-                edges=real,
+                edges=real, nseg=plan.sched.nseg,
                 ms=cuda_ms(lambda: k8.spmm_v2(plan, x)),
                 plain_ms=cuda_ms(lambda: k8.spmm_v2_plain(plan, x),
                                  iters=2 if wide else 5, warmup=1),
@@ -1169,7 +1173,9 @@ def same_plans(a, b) -> bool:
 def tuner_paths(graphs, cases, drive, train, check, gen):
     """Phase 9: every DEFAULT_CONFIGS entry built (A and Aᵀ) and held
     against the reference path on both graphs, and ``tune_spmm`` over those
-    builds; K9 and K10 against their plain versions and timed; ``auto_tile``
+    builds; K9, K10 and K8 (density-rep's full version-2 plan and
+    version-3 residual) against their plain versions and timed; the
+    forced-split paths of K9, K2, K10 and K8; ``auto_tile``
     of a fresh graph from both caches and 10 GCN epochs on it; GCN through
     versions 3, 1 and 2 on density-rep.  Appends the kernel cases to
     ``cases``; returns the launches of the version-3, -1 and -2 paths."""
@@ -1275,45 +1281,92 @@ def tuner_paths(graphs, cases, drive, train, check, gen):
                     f"{r['tol']:.3g}; {r['nc']} chunks, fill {r['fill']:.3f}, "
                     f"{r['nseg']} items, {r['split_rows']} split rows")
 
+    # ---- K8 on density-rep's full plans: the version-2 plan (256/512/512)
+    # and the version-3 residual (256/128/512 at threshold 64) ------------
+    v2 = kept[("density-rep", 2)]
+    for case, direction, plan in (
+            ("v2", "fwd", v2.fwd), ("v2", "bwd", v2.bwd),
+            ("v3 residual", "fwd", v3.fwd.residual),
+            ("v3 residual", "bwd", v3.bwd.residual)):
+        for k in MM_KS:
+            r = check_and_time_v2("density-rep", f"{case} {direction}", plan,
+                                  k, gen)
+            cases.append(r)
+            log(f"spmm_v2 density-rep {case} {direction} K={k}: "
+                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library "
+                f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
+                f"{r['bound'][1]}), err {r['max_abs_err']:.3g} <= "
+                f"{r['tol']:.3g}; {r['edges']} edges in {r['nc']} chunks, "
+                f"fill {r['fill']:.3f}, {r['nseg']} items")
+
     # ---- the split paths at full size: density-rep's plans with their hub
-    # row blocks cut into pieces of 4 members (K9) and their rows into items
-    # of 32 slots (K10), so most outputs are added by several CTAs or warps
+    # row blocks cut into pieces of 4 members (K9) or blocks (K2) and their
+    # rows into items of 32 slots (K10, K8), so most outputs are added by
+    # several CTAs or warps; K8 also adds into an output it is given ------
+    from isplib_tpu_torch.kernels import spmm_bsr as k2
     from isplib_tpu_torch.kernels import spmm_bsr_v3 as k9
     from isplib_tpu_torch.kernels import spmm_rowblock as k10
+    from isplib_tpu_torch.kernels import spmm_v2 as k8
     from isplib_tpu_torch.sparse.tiling import derive_row_schedule
+    from isplib_tpu_torch.sparse.tiling_v2 import derive_v2_schedule
     from isplib_tpu_torch.sparse.tiling_v3 import derive_bsr_schedule
-    v1 = kept[("density-rep", 1)]
-    for direction, p3, p1 in (("fwd", v3.fwd.bsr, v1.fwd),
-                              ("bwd", v3.bwd.bsr, v1.bwd)):
+    from isplib_tpu_torch.sparse.tiling_v5 import derive_block_schedule
+    v1, v5 = kept[("density-rep", 1)], graphs["density-rep"][2]
+    for direction, p3, p1, p5, p2 in (
+            ("fwd", v3.fwd.bsr, v1.fwd, v5.fwd, v2.fwd),
+            ("bwd", v3.bwd.bsr, v1.bwd, v5.bwd, v2.bwd)):
         p3 = dataclasses.replace(p3, sched=derive_bsr_schedule(
             p3, piece_members=4))
         p1 = dataclasses.replace(p1, sched=derive_row_schedule(
             p1, seg_slots=32))
+        p5 = dataclasses.replace(p5, sched=derive_block_schedule(
+            p5, piece_blocks=4))
+        p2 = dataclasses.replace(p2, sched=derive_v2_schedule(
+            p2, seg_slots=32))
         split3 = int(p3.sched.pieces[:, 3].sum())
         split1 = int((p1.sched.row_ptr.diff() > 32).sum())
-        if not (split3 and split1):
-            raise AssertionError(f"density-rep {direction}: no split pieces "
-                                 f"({split3}) or rows ({split1})")
+        split5 = int(p5.sched.pieces[:, 3].sum())
+        split2 = int((p2.sched.row_ptr.diff() > 32).sum())
+        if not (split3 and split1 and split5 and split2):
+            raise AssertionError(
+                f"density-rep {direction}: no split pieces ({split3}, "
+                f"{split5}) or rows ({split1}, {split2})")
         for k in MM_KS:
             x = torch.randn(p3.num_cols, k, device=gen.device, generator=gen)
+            base = torch.randn(p2.num_rows, k, device=gen.device,
+                               generator=gen)
             e3, t3 = check_near_plain(
                 f"spmm_bsr_v3 density-rep {direction} K={k}, pieces of 4",
                 k9.spmm_bsr_v3(p3, x), k9.spmm_bsr_v3_plain(p3, x))
             e1, t1 = check_near_plain(
                 f"spmm_rowblock density-rep {direction} K={k}, items of 32",
                 k10.spmm_rowblock(p1, x), k10.spmm_rowblock_plain(p1, x))
-            cases.append(dict(kernel="spmm_bsr_v3", graph="density-rep",
-                              direction=direction, case="split", k=k,
-                              max_abs_err=e3))
-            cases.append(dict(kernel="spmm_rowblock", graph="density-rep",
-                              direction=direction, case="split", k=k,
-                              max_abs_err=e1))
+            e5, t5 = check_near_plain(
+                f"spmm_bsr density-rep {direction} K={k}, pieces of 4",
+                k2.spmm_bsr(p5, x), k2.spmm_bsr_plain(p5, x))
+            want2 = k8.spmm_v2_plain(p2, x)
+            e2, t2 = check_near_plain(
+                f"spmm_v2 density-rep {direction} K={k}, items of 32",
+                k8.spmm_v2(p2, x), want2)
+            e2a, t2a = check_near_plain(
+                f"spmm_v2 density-rep {direction} K={k}, items of 32, added",
+                k8.spmm_v2(p2, x, base.clone()), want2 + base)
+            for kname, err in (("spmm_bsr_v3", e3), ("spmm_rowblock", e1),
+                               ("spmm_bsr", e5), ("spmm_v2", max(e2, e2a))):
+                cases.append(dict(kernel=kname, graph="density-rep",
+                                  direction=direction, case="split", k=k,
+                                  max_abs_err=err))
             log(f"split density-rep {direction} K={k}: spmm_bsr_v3 with "
                 f"{p3.sched.n_pieces} pieces of <= 4 members ({split3} of "
                 f"split row blocks), err {e3:.3g} <= {t3:.3g}; spmm_rowblock "
                 f"with {p1.sched.nseg} items of <= 32 slots ({split1} split "
-                f"rows), err {e1:.3g} <= {t1:.3g}")
-        del p3, p1
+                f"rows), err {e1:.3g} <= {t1:.3g}; spmm_bsr with "
+                f"{p5.sched.n_pieces} pieces of <= 4 blocks ({split5} of "
+                f"split block-rows), err {e5:.3g} <= {t5:.3g}; spmm_v2 with "
+                f"{p2.sched.nseg} items of <= 32 slots ({split2} split rows), "
+                f"err {e2:.3g} <= {t2:.3g}, added {e2a:.3g} <= {t2a:.3g}")
+            del x, base, want2
+        del p3, p1, p5, p2
 
     # ---- auto_tile of a fresh graph takes the winner from both caches -----
     for name, (arrays, g, _) in graphs.items():

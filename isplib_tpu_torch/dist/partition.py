@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..sparse.plan_cache import tree_to
 from ..sparse.tiling_v2 import build_plan_v2_arrays
 from ..sparse.tiling_v5 import build_hybrid_plan
 
@@ -62,14 +63,6 @@ def _round_up(a: int, b: int) -> int:
 _V2_SUM = dict(rb=128, ct=128, eb=512, k=32, vmem_out_bytes=6 << 20)
 _V2_MINMAX = dict(_V2_SUM, vmem_out_bytes=2 << 20)
 _V5_DENSE_THRESHOLD = 64
-
-
-def _plan_to(plan, dev: torch.device):
-    """A plan dataclass with every tensor field on ``dev``."""
-    return dataclasses.replace(plan, **{
-        f.name: getattr(plan, f.name).to(dev)
-        for f in dataclasses.fields(plan)
-        if isinstance(getattr(plan, f.name), torch.Tensor)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +125,7 @@ class ShardedGraph:
 
         def plans(ps):
             return None if ps is None else tuple(
-                tuple(_plan_to(p, dev) for p in shard) for shard in ps)
+                tuple(tree_to(p, dev) for p in shard) for shard in ps)
 
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(dev) for f in _ARRAY_FIELDS},

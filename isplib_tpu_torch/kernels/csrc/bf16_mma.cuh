@@ -1,8 +1,8 @@
-// The copy and tensor-core helpers that the dense-block kernels share:
-// spmm_bsr.cu (K2, the v5 hybrid's dense half) and spmm_bsr_v3.cu (K9, the
-// v3 celled BSR).  cp.async copies into shared memory, ldmatrix fragment
-// loads (plain and transposed) and the mma.sync m16n8k16 bf16 product with
-// fp32 accumulation.
+// The copy and tensor-core helpers of the dense-block walk (bsr_walk.cuh),
+// which spmm_bsr.cu (K2, the v5 hybrid's dense half) and spmm_bsr_v3.cu
+// (K9, the v3 celled BSR) share.  cp.async copies into shared memory,
+// ldmatrix fragment loads (plain and transposed) and the mma.sync
+// m16n8k16 bf16 product with fp32 accumulation.
 
 #pragma once
 
@@ -20,14 +20,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src));
-}
-
-// 4-byte copy; src_bytes = 0 zero-fills the destination without reading
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

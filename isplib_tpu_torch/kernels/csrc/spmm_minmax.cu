@@ -15,17 +15,17 @@
 // What bounds it on an H100: HBM bytes, namely the four edge planes (16 B
 // per slot, read once per K tile), one x tile per cell visited, the zeroed
 // 64-bit scratch (written by atomics, read by the decode) and out + arg.
-// The design is K8's (v2_cell.cuh, spmm_v2.cu): the cell's x tile in shared
-// memory, a warp per 32 slots, lanes over features, pad slots skipped by a
-// ballot.  The TPU kernel's segmented scan and one-hot moves become keys:
-// each lane keeps, per feature, the largest key (minmax_key.cuh: ordered
-// value, then the lower id) of the current row in registers and, when the
-// row changes, combines it into the row block's key array in shared memory
-// (rb x KT, 64-bit atomicMax); a flush combines the nonzero keys into the
-// global scratch (R, K) with atomicMax, and a second kernel decodes every
-// key into out and arg.  A maximum of keys does not depend on the order in
-// which they meet, so the result is the same in every run.  This is K3's
-// scheme (spmm_minmax_v4.cu) on the cell walk.
+// The design is the cell walk (v2_cell.cuh, K8's until K8 took K10's row
+// walk): the cell's x tile in shared memory, a warp per 32 slots, lanes over
+// features, pad slots skipped by a ballot.  The TPU kernel's segmented scan
+// and one-hot moves become keys: each lane keeps, per feature, the largest key
+// (minmax_key.cuh: ordered value, then the lower id) of the current row in
+// registers and, when the row changes, combines it into the row block's key
+// array in shared memory (rb x KT, 64-bit atomicMax); a flush combines the
+// nonzero keys into the global scratch (R, K) with atomicMax, and a second
+// kernel decodes every key into out and arg.  A maximum of keys does not
+// depend on the order in which they meet, so the result is the same in every
+// run.  This is K3's scheme (spmm_minmax_v4.cu) on the cell walk.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

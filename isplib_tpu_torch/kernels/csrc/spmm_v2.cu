@@ -9,139 +9,87 @@
 // kernel rounds each product to bf16 before its one-hot scatter matmul, the
 // port does not (the port holds every kernel to the fp32 reference).
 //
-// What bounds it on an H100: HBM bytes, namely the edge planes (12 B per
-// slot, pads included, read once per K tile), one x tile per cell visited
-// and the output; two operations per edge and feature are far below the
-// fp32 peak.  The design (v2_cell.cuh) holds the cell's x tile in shared
-// memory and streams the chunks past it.  A warp takes 32 slots at a time,
-// read coalesced and broadcast with shuffles, lanes over features (NK per
-// lane); pad slots (value 0) are skipped through a ballot.  A chunk's edges
-// come in row order, so each lane keeps a running sum per feature while the
-// row stays the same and adds it into the row block's fp32 accumulator in
-// shared memory (rb x KT, by atomicAdd: the warps of a block share it) when
-// the row changes.  A flush adds the accumulator's nonzero entries into the
-// zeroed output with atomicAdd, since the column tiles of a superblock, and
-// the runs of chunks of one cell, meet in the same rows.  The sums are
-// therefore taken in an order that changes from run to run.
+// What bounds it on an H100: the gathered x rows (K*4 B a real slot, from
+// L2) and the latency of those gathers; the real slots' planes and the
+// output are the HBM bytes, and two operations per slot and feature are far
+// below the fp32 peak.  The design this replaced (v2_cell.cuh: a CTA per
+// run of 8 chunks and K tile of 32 or 64, the cell's x tile loaded
+// synchronously at every cell change, every slot read, pads included, one
+// live slot at a time per warp, an rb x KT shared accumulator fed by
+// shared atomics and flushed into a zeroed output with global atomics:
+// 0.0751 ms at K = 32 and 0.7334 ms at K = 602 on reddit-sim's shard 0)
+// read the version-3 residual's 40.7M slots for 2.06M real edges, in up to
+// nineteen K tiles at K = 602.
+//
+// The design is K10's walk (row_walk.cuh): rows are owned, and many gathers
+// are in flight.  The plan's schedule (RowScheduleV2, derived once per plan)
+// lists each row's real slots as flat indices, so pads are never read, cuts
+// rows into work items of at most 64 slots (four times K10's 256: a shard's
+// dense rows then spread over four times the warps), and gives each chunk's
+// column offset, so a slot decodes with no search for its cell.  A warp takes
+// one item and one K tile of up to 160 features (K = 602 in four passes; tiles
+// of 128, five passes, and of 256 or 320 were slower: probe_bsr_v3.py),
+// decodes 32 slots at once and broadcasts them with shuffles, with up to eight
+// x-row gathers in flight, and keeps the sum in registers.  Two output modes.
+// Write (versions 2 and the sharded route, out = None in the wrapper): a
+// pre-pass zeroes the rows without slots and the split rows, then the walk
+// stores each row of one item once and adds a split row's items with atomics,
+// so no zeroed output is made first.  Add (the version-3 residual, into K9's
+// output): the one warp that owns an unsplit row reads, adds and stores it;
+// split rows add with atomics; rows without slots are left alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "v2_cell.cuh"
+#include "row_walk.cuh"
 
 namespace {
 
-using v2cell::FULL;
-using v2cell::THREADS;
-
-template <int NK>
-__global__ void __launch_bounds__(THREADS)
-    spmm_v2_kernel(const int* __restrict__ edges,
-                   const int* __restrict__ rb_locals,
-                   const int* __restrict__ cell_starts,
-                   const float* __restrict__ x, float* __restrict__ out,
-                   int nc, int n_cells, int planes, int eb, int rb, int ct,
-                   int nct, int nrb_s, int num_rows, int num_cols, int k) {
-  constexpr int KT = 32 * NK;
-  extern __shared__ __align__(16) float smem[];
-  float* x_s = smem;             // ct x KT
-  float* acc = smem + ct * KT;   // rb x KT
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k0 = blockIdx.y * KT;
-  for (int i = threadIdx.x; i < rb * KT; i += THREADS) acc[i] = 0.f;
-
-  auto add_row = [&](int row, float (&sum)[NK]) {
-#pragma unroll
-    for (int t = 0; t < NK; ++t) {
-      atomicAdd(acc + row * KT + lane + 32 * t, sum[t]);
-      sum[t] = 0.f;
-    }
-  };
-  auto chunk = [&](int ch) {
-    const int* e = edges + static_cast<size_t>(ch) * planes * eb;
-    for (int g = warp * 32; g < eb; g += THREADS) {
-      const int cl = e[g + lane];
-      const float v = __int_as_float(e[eb + g + lane]);
-      const int rl = e[2 * eb + g + lane];
-      unsigned live = __ballot_sync(FULL, v != 0.f);
-      if (!live) continue;
-      int row = __shfl_sync(FULL, rl, __ffs(live) - 1);
-      float sum[NK] = {};
-      while (live) {
-        const int j = __ffs(live) - 1;
-        live &= live - 1;
-        const int rj = __shfl_sync(FULL, rl, j);
-        const int cj = __shfl_sync(FULL, cl, j);
-        const float vj = __shfl_sync(FULL, v, j);
-        if (rj != row) {
-          add_row(row, sum);
-          row = rj;
-        }
-        const float* xr = x_s + cj * KT + lane;
-#pragma unroll
-        for (int t = 0; t < NK; ++t) sum[t] = fmaf(vj, xr[32 * t], sum[t]);
-      }
-      add_row(row, sum);
-    }
-  };
-  auto flush = [&](int row0) {
-    for (int i = threadIdx.x; i < rb * KT; i += THREADS) {
-      const float s = acc[i];
-      if (s == 0.f) continue;
-      acc[i] = 0.f;
-      const int r = row0 + i / KT, f = k0 + i % KT;
-      if (r < num_rows && f < k)
-        atomicAdd(out + static_cast<size_t>(r) * k + f, s);
-    }
-  };
-  v2cell::walk<KT>(cell_starts, rb_locals, nc, n_cells, nct, nrb_s, rb, ct, x,
-                   x_s, num_cols, k, k0, chunk, flush);
-}
-
-template <int NK>
-size_t smem_bytes(int rb, int ct) {
-  return static_cast<size_t>(ct + rb) * 32 * NK * sizeof(float);
-}
-
-template <int NK>
-int launch(const void* edges, const void* rb_locals, const void* cell_starts,
-           const void* x, void* out, int nc, int n_cells, int planes, int eb,
-           int rb, int ct, int nct, int nrb_s, int num_rows, int num_cols,
-           int k, cudaStream_t stream) {
-  const size_t smem = smem_bytes<NK>(rb, ct);
-  cudaError_t err = cudaFuncSetAttribute(
-      spmm_v2_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nc + v2cell::CHUNKS_PER_CTA - 1) / v2cell::CHUNKS_PER_CTA,
-                  (k + 32 * NK - 1) / (32 * NK));
-  spmm_v2_kernel<NK><<<grid, THREADS, smem, stream>>>(
-      static_cast<const int*>(edges), static_cast<const int*>(rb_locals),
-      static_cast<const int*>(cell_starts), static_cast<const float*>(x),
-      static_cast<float*>(out), nc, n_cells, planes, eb, rb, ct, nct, nrb_s,
-      num_rows, num_cols, k);
-  return static_cast<int>(cudaGetLastError());
+// the rows zero_rows of out (num_rows, k) set to 0
+__global__ void __launch_bounds__(rowwalk::THREADS)
+    zero_rows_kernel(const int* __restrict__ zero_rows,
+                     float* __restrict__ out, int n_zero, int k) {
+  const size_t n = static_cast<size_t>(n_zero) * k;
+  const size_t stride = static_cast<size_t>(gridDim.x) * rowwalk::THREADS;
+  for (size_t q = static_cast<size_t>(blockIdx.x) * rowwalk::THREADS +
+                  threadIdx.x;
+       q < n; q += stride)
+    out[static_cast<size_t>(zero_rows[q / k]) * k + q % k] = 0.f;
 }
 
 }  // namespace
 
-// out (num_rows, k) fp32, zeroed by the caller, += the plan's edges times x
-// (num_cols, k) fp32, on CUDA device `device` and stream `stream`.  K tiles
-// of 64 features (two a lane) where K > 32 and the tile and accumulator fit
-// 100 KB of shared memory, so that two blocks share an SM; else 32.
-// Returns the CUDA error of the launch (0 = launched).
-extern "C" int spmm_v2_launch(const void* edges, const void* rb_locals,
-                              const void* cell_starts, const void* x,
-                              void* out, int nc, int n_cells, int planes,
-                              int eb, int rb, int ct, int nct, int nrb_s,
-                              int num_rows, int num_cols, int k, int device,
-                              void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
+// out (num_rows, k) fp32 = (add: +=) the plan's edges times x (num_cols, k)
+// fp32, walking the plan's schedule, on CUDA device `device` and stream
+// `stream`.  Without add, out need not be zeroed: the n_zero rows
+// zero_rows (those without slots, and the split ones) are zeroed first,
+// one more launch.  K tiles of up to 160 features.  Returns the CUDA error
+// of the launches (0 = launched).
+extern "C" int spmm_v2_launch(const void* edges, const void* chunk_col,
+                              const void* order, const void* row_ptr,
+                              const void* seg_ptr, const void* seg_row,
+                              const void* zero_rows, const void* x, void* out,
+                              int nseg, int n_zero, int eb, int k, int add,
+                              int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k > 32 && smem_bytes<2>(rb, ct) <= 100 * 1024)
-    return launch<2>(edges, rb_locals, cell_starts, x, out, nc, n_cells,
-                     planes, eb, rb, ct, nct, nrb_s, num_rows, num_cols, k, s);
-  return launch<1>(edges, rb_locals, cell_starts, x, out, nc, n_cells, planes,
-                   eb, rb, ct, nct, nrb_s, num_rows, num_cols, k, s);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!add && n_zero > 0) {
+    const size_t n = static_cast<size_t>(n_zero) * k;
+    size_t blocks = (n + rowwalk::THREADS - 1) / rowwalk::THREADS;
+    if (blocks > 132 * 16) blocks = 132 * 16;
+    zero_rows_kernel<<<static_cast<int>(blocks), rowwalk::THREADS, 0, st>>>(
+        static_cast<const int*>(zero_rows), static_cast<float*>(out), n_zero,
+        k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (nseg == 0) return 0;
+  const rowwalk::V2Slots slots{static_cast<const int*>(edges),
+                               static_cast<const int*>(chunk_col), eb};
+  if (add)
+    return rowwalk::run<true, 5>(slots, order, row_ptr, seg_ptr, seg_row, x,
+                                 out, nseg, k, st);
+  return rowwalk::run<false, 5>(slots, order, row_ptr, seg_ptr, seg_row, x,
+                                out, nseg, k, st);
 }

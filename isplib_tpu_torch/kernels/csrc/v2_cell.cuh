@@ -1,5 +1,6 @@
-// The walk over a v2 plan's chunks that the cell-streaming kernels
-// (spmm_v2.cu, K8, and spmm_minmax.cu, K7) share.
+// The walk over a v2 plan's chunks of the cell-streaming max/min kernel
+// (spmm_minmax.cu, K7).  The sum kernel over the same plans (spmm_v2.cu,
+// K8) walked it too until it took K10's row walk (row_walk.cuh).
 //
 // A v2 plan (isplib_tpu_torch/sparse/tiling_v2.py) lists edge chunks cell by
 // cell, a cell being one (row superblock, column tile) pair; the chunks of a

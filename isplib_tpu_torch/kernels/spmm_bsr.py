@@ -1,9 +1,12 @@
 """Dense half of the hybrid SpMM: ``csrc/spmm_bsr.cu`` and its plain version.
 
-Counterpart of ``isplib_tpu/kernels/spmm_bsr2.py::_bsr2_kernel`` (K2).  For a
-CUDA tensor the wrapper launches the kernel or raises; the plain PyTorch
-version, with the same bf16 rounding of x and the blocks, runs only for a
-CPU tensor (and in ``chip_smoke.py``, which holds the kernel against it).
+Counterpart of ``isplib_tpu/kernels/spmm_bsr2.py::_bsr2_kernel`` (K2).  The
+kernel walks the plan's schedule (``HybridPlan.sched``, K9's walk over the
+v5 blocks): one CTA per block-row, or per piece of a hub block-row, whose
+sum stays in registers and is stored once.  For a CUDA tensor the wrapper
+launches the kernel or raises; the plain PyTorch version, with the same
+bf16 rounding of x and the blocks, runs only for a CPU tensor (and in
+``chip_smoke.py``, which holds the kernel against it).
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ def spmm_bsr_plain(plan: HybridPlan, x: torch.Tensor) -> torch.Tensor:
 @functools.cache
 def _lib():
     fn = build.load("spmm_bsr").spmm_bsr_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -64,7 +67,11 @@ def _lib():
 
 def spmm_bsr(plan: HybridPlan, x: torch.Tensor) -> torch.Tensor:
     """``out (num_rows, K) = dense blocks @ x``, fp32, every row written
-    (rows without a dense block are 0)."""
+    (rows without a dense block are 0).
+
+    On CUDA a call is two launches on the current stream, counted as one
+    in ``LAUNCHES``: a pre-pass that rounds x to bf16 into a scratch and
+    zeroes the block-rows the walk does not store whole, then the walk."""
     global LAUNCHES
     _check(plan, x)
     if x.device.type == "cpu":
@@ -74,11 +81,19 @@ def spmm_bsr(plan: HybridPlan, x: torch.Tensor) -> torch.Tensor:
     k = x.shape[1]
     if plan.nb == 0 or k == 0:
         return x.new_zeros(plan.num_rows, k)
+    if plan.sched is None:
+        raise ValueError("the plan has no K2 schedule: build it with "
+                         "build_hybrid_plan")
+    s = plan.sched
     out = torch.empty(plan.num_rows, k, dtype=torch.float32,
                       device=x.device)
-    err = _lib()(plan.blocks.data_ptr(), plan.blk_rowptr.data_ptr(),
-                 plan.blk_col.data_ptr(), x.data_ptr(), out.data_ptr(),
-                 plan.n_br, plan.num_rows, plan.num_cols, k, x.device.index,
+    xb = torch.empty(-(-plan.num_cols // BS) * BS, -(-k // 8) * 8,
+                     dtype=torch.bfloat16, device=x.device)
+    err = _lib()(plan.blocks.data_ptr(), s.members.data_ptr(),
+                 s.pieces.data_ptr(), s.zero_rbs.data_ptr(), x.data_ptr(),
+                 xb.data_ptr(), out.data_ptr(), s.n_pieces,
+                 s.zero_rbs.shape[0], plan.num_rows, plan.num_cols,
+                 xb.shape[0], k, x.device.index,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"spmm_bsr launch failed: CUDA error {err}")

@@ -3,10 +3,12 @@
 Counterpart of ``isplib_tpu/kernels/spmm_pallas_v2.py::_spmm_v2_kernel``
 (K8), the sharded path's sum kernel under ``tiling={"version": 2}``, the
 kernel of ``build_tiling(version=2)`` and the residual half of version 3.  The
-port computes in fp32; the TPU kernel rounds each product to bf16.  For a
-CUDA tensor the wrapper launches the kernel or raises; the plain version
-runs only for a CPU tensor (and in ``chip_smoke.py``, which holds the
-kernel against it).
+port computes in fp32; the TPU kernel rounds each product to bf16.  The
+kernel walks the plan's schedule (``TiledPlanV2.sched``, K10's walk over
+the v2 planes): a warp per work item of one row's real slots, its sum in
+registers, stored once.  For a CUDA tensor the wrapper launches the kernel
+or raises; the plain version runs only for a CPU tensor (and in
+``chip_smoke.py``, which holds the kernel against it).
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def spmm_v2_plain(plan: TiledPlanV2, x: torch.Tensor) -> torch.Tensor:
 @functools.cache
 def _lib():
     fn = build.load("spmm_v2").spmm_v2_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -69,7 +71,11 @@ def spmm_v2(plan: TiledPlanV2, x: torch.Tensor,
             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out (num_rows, K) += plan's edges @ x``, fp32, into zeros when
     ``out`` is None (the v3 hybrid passes its dense half's output);
-    returns ``out``."""
+    returns ``out``.
+
+    On CUDA without ``out``, a call is two launches on the current stream,
+    counted as one in ``LAUNCHES``: a pre-pass zeroes the rows without
+    slots and the split ones, then the walk writes the others."""
     global LAUNCHES
     check_operand(plan, x)
     k = x.shape[1]
@@ -84,16 +90,22 @@ def spmm_v2(plan: TiledPlanV2, x: torch.Tensor,
         return part if out is None else out.add_(part)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_v2 runs on cuda or cpu, not {x.device}")
+    if plan.sched is None:
+        raise ValueError("the plan has no K8 schedule: build it with "
+                         "build_plan_v2_arrays, without edge ids")
+    add = out is not None
     if out is None:
-        out = torch.zeros(plan.num_rows, k, dtype=torch.float32,
+        out = torch.empty(plan.num_rows, k, dtype=torch.float32,
                           device=x.device)
-    if plan.fill == 0.0 or k == 0:
+    if k == 0:
         return out
-    err = _lib()(plan.edges.data_ptr(), plan.rb_locals.data_ptr(),
-                 plan.cell_starts.data_ptr(), x.data_ptr(), out.data_ptr(),
-                 plan.nc, plan.n_cells, plan.planes, plan.eb, plan.rb,
-                 plan.ct, plan.nct, plan.nrb_s, plan.num_rows, plan.num_cols,
-                 k, x.device.index,
+    s = plan.sched
+    err = _lib()(plan.edges.data_ptr(), s.chunk_col.data_ptr(),
+                 s.order.data_ptr(), s.row_ptr.data_ptr(),
+                 s.seg_ptr.data_ptr(), s.seg_row.data_ptr(),
+                 s.zero_rows.data_ptr(), x.data_ptr(), out.data_ptr(),
+                 s.nseg, s.zero_rows.shape[0], plan.eb, k, int(add),
+                 x.device.index,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"spmm_v2 launch failed: CUDA error {err}")

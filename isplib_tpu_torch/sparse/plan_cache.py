@@ -7,13 +7,14 @@ later run loads them instead.  The key folds in every plan-shaping argument,
 a content fingerprint of the graph and ``PLAN_FORMAT_VERSION``, so a stale
 entry is missed, never misread.
 
-Format: ``np.savez`` with ``allow_pickle=False``.  A plan tree (dicts,
-tuples, lists, None, scalars, tensors and the port's plan dataclasses) is
-flattened into arrays plus a JSON spec that names each dataclass by module
-path, accepted only from ``isplib_tpu_torch.`` modules, so a cache directory
-can never run code.  Tensors are stored from the CPU and the spec records
-each one's dtype: a bf16 tensor is stored as its int16 bits and comes back
-as bf16, bit for bit (the JAX package's npz loses bf16 as ``|V2``).
+Format: ``np.savez`` with ``allow_pickle=False``, the format version stored
+beside the plans (``fmt``; a file without it is format 2 or older).  A plan
+tree (dicts, tuples, lists, None, scalars, tensors and the port's plan
+dataclasses) is flattened into arrays plus a JSON spec that names each
+dataclass by module path, accepted only from ``isplib_tpu_torch.`` modules, so
+a cache directory can never run code.  Tensors are stored from the CPU and the
+spec records each one's dtype: a bf16 tensor is stored as its int16 bits and
+comes back as bf16, bit for bit (the JAX package's npz loses bf16 as ``|V2``).
 """
 
 from __future__ import annotations
@@ -36,8 +37,9 @@ __all__ = ["plan_cache_path", "save_host_plans", "load_host_plans",
            "PLAN_FORMAT_VERSION"]
 
 # Bump when a plan layout or a plan dataclass changes incompatibly.  2: the
-# v1 and v3 plans carry their kernels' schedules (``sched``).
-PLAN_FORMAT_VERSION = 2
+# v1 and v3 plans carry their kernels' schedules (``sched``); 3: so do the
+# v5 plans (K2's) and the v2 plans without edge ids (K8's).
+PLAN_FORMAT_VERSION = 3
 
 _MODULE_PREFIX = "isplib_tpu_torch."
 
@@ -161,6 +163,7 @@ def save_host_plans(path: str, plans) -> None:
     try:
         with os.fdopen(fd, "wb") as f:
             np.savez(f, spec=np.frombuffer(spec, np.uint8),
+                     fmt=np.int32(PLAN_FORMAT_VERSION),
                      **{f"a{i}": a for i, a in enumerate(arrays)})
         os.replace(tmp, path)
     except BaseException:
@@ -173,11 +176,18 @@ def save_host_plans(path: str, plans) -> None:
 
 def load_host_plans(path: str):
     """The plan tree saved at ``path``, its tensors on the CPU; None on a
-    miss.  An entry that fails to decode is a miss, logged."""
+    miss.  An entry of another format version, or one that fails to
+    decode, is a miss, logged."""
     if not os.path.exists(path):
         return None
     try:
         with np.load(path, allow_pickle=False) as z:
+            fmt = int(z["fmt"]) if "fmt" in z.files else 2
+            if fmt != PLAN_FORMAT_VERSION:
+                print(f"[isplib_tpu_torch] plan cache entry {path} is format "
+                      f"{fmt}, not {PLAN_FORMAT_VERSION}; rebuilding",
+                      file=sys.stderr)
+                return None
             spec = json.loads(bytes(z["spec"]).decode())
             return _decode(spec, z)
     except Exception as e:  # noqa: BLE001 - any corruption is a miss

@@ -43,7 +43,7 @@ import torch
 
 from ..device import resolve_device
 from .graph import CSRGraph
-from .tiling_v2 import TiledPlanV2, build_plan_v2_arrays
+from .tiling_v2 import TiledPlanV2, build_plan_v2_arrays, row_items
 from .tiling_v3 import HybridPlanV3, build_plan_v3_arrays
 from .tiling_v4mm import MinMaxPlan, build_minmax_plan
 from .tiling_v5 import HybridPlan, build_hybrid_plan
@@ -242,28 +242,12 @@ def derive_row_schedule(plan: TiledPlan,
     if plan.nc * plan.eb >= 2**31:
         raise ValueError(f"{plan.nc * plan.eb} slots: K10's int32 slot "
                          "index overflows")
-    dev = plan.device
     e = plan.edges.reshape(plan.nc, 3, plan.eb)
     real = torch.nonzero(e[:, 2].reshape(-1).view(torch.float32) != 0
                          ).reshape(-1)
     row = (plan.rb_ids.long()[:, None] * plan.rb
            + e[:, 0].long()).reshape(-1)[real]
-    order = real[torch.argsort(row, stable=True)]
-    cnt = torch.bincount(row, minlength=plan.num_rows)
-    row_ptr = torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)])
-    nseg = (cnt + seg_slots - 1) // seg_slots
-    seg_row = torch.repeat_interleave(
-        torch.arange(plan.num_rows, device=dev), nseg)
-    i = (torch.arange(seg_row.shape[0], device=dev)
-         - (torch.cumsum(nseg, 0) - nseg)[seg_row])
-    seg_ptr = torch.cat([row_ptr[seg_row] + i * seg_slots,
-                         row_ptr[-1:]])
-
-    def i32(t):
-        return t.to(torch.int32).contiguous()
-
-    return RowSchedule(order=i32(order), row_ptr=i32(row_ptr),
-                       seg_ptr=i32(seg_ptr), seg_row=i32(seg_row))
+    return RowSchedule(**row_items(row, real, plan.num_rows, seg_slots))
 
 
 SumPlan = Union[HybridPlan, HybridPlanV3, TiledPlanV2, TiledPlan]

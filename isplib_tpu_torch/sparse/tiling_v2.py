@@ -18,8 +18,14 @@ for array:
 
 A chunk's rows are ``(s·nrb_s + rb_locals[c])·rb + plane 2`` and its
 columns ``(cell % nct)·ct + plane 0``, with ``s = cell // nct``.  The CUDA
-kernels K8 (``kernels/spmm_v2``) and K7 (``kernels/spmm_minmax``) read the
-arrays as they are.
+kernel K7 (``kernels/spmm_minmax``) reads the arrays as they are.
+
+Beside those arrays, and never in place of them, a plan without edge ids
+carries the schedule that K8 (``kernels/spmm_v2``) walks
+(``RowScheduleV2``), derived once per plan on the plan's device, in the
+form of K10's ``RowSchedule``: each row's real slots, cut into work items
+of at most ``ITEM_SLOTS``, and each chunk's column and row offsets, so a
+slot decodes with no search for its cell.
 
 Left out of the port: the native OpenMP build (the JAX package takes it
 for row-sorted input without edge ids and gets the same arrays; the numpy
@@ -32,6 +38,8 @@ the sharded path drops).
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from typing import Optional
 
 import numpy as np
@@ -39,14 +47,72 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["TiledPlanV2", "build_plan_v2_arrays"]
+__all__ = ["TiledPlanV2", "RowScheduleV2", "build_plan_v2_arrays",
+           "derive_v2_schedule", "row_items", "ITEM_SLOTS"]
 
 _LANE = 128
 _TAIL = 8  # inert chunks after the real ones, as in the JAX plan
+ITEM_SLOTS = 64  # real slots a K8 warp takes at most (one row's;
+                 # probe_bsr_v3.py)
+
+_log = logging.getLogger(__name__)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def row_items(row: torch.Tensor, flat: torch.Tensor, num_rows: int,
+              seg_slots: int) -> dict[str, torch.Tensor]:
+    """The row walk of K8 and K10 over real slots ``flat`` (int64 flat slot
+    indices, ascending) of global rows ``row``: ``order`` (the slots sorted
+    by (row, flat index)), ``row_ptr`` (num_rows + 1,), and the rows cut
+    into work items of at most ``seg_slots`` slots, ``seg_ptr`` (nseg +
+    1,) and ``seg_row`` (nseg,) (a row without slots has none); int32."""
+    if seg_slots < 1:
+        raise ValueError(f"seg_slots={seg_slots}: a work item takes at "
+                         "least one slot")
+    dev = flat.device
+    order = flat[torch.argsort(row, stable=True)]
+    cnt = torch.bincount(row, minlength=num_rows)
+    row_ptr = torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)])
+    nseg = (cnt + seg_slots - 1) // seg_slots
+    seg_row = torch.repeat_interleave(torch.arange(num_rows, device=dev),
+                                      nseg)
+    i = (torch.arange(seg_row.shape[0], device=dev)
+         - (torch.cumsum(nseg, 0) - nseg)[seg_row])
+    seg_ptr = torch.cat([row_ptr[seg_row] + i * seg_slots, row_ptr[-1:]])
+    return {f: t.to(torch.int32).contiguous() for f, t in (
+        ("order", order), ("row_ptr", row_ptr), ("seg_ptr", seg_ptr),
+        ("seg_row", seg_row))}
+
+
+@dataclasses.dataclass(frozen=True)
+class RowScheduleV2:
+    """K8's walk over a ``TiledPlanV2`` without edge ids, derived from its
+    JAX-equal arrays.
+
+    ``order``, ``row_ptr``, ``seg_ptr`` and ``seg_row`` as in K10's
+    ``RowSchedule``: every real slot (value not 0) as its flat index
+    ``chunk·eb + slot``, sorted by (global row, flat index), each row's
+    range in ``order``, and the rows cut into work items of at most
+    ``ITEM_SLOTS`` slots.  ``zero_rows`` (n_zero,) int32: the rows that K8
+    zeroes before its walk when it writes a fresh output, those without
+    slots and those split over several items.  ``chunk_col`` and
+    ``chunk_row`` (nc,) int32: each chunk's first global column, ``(cell %
+    nct)·ct``, and first global row, ``(s·nrb_s + rb_locals)·rb``."""
+
+    order: torch.Tensor
+    row_ptr: torch.Tensor
+    seg_ptr: torch.Tensor
+    seg_row: torch.Tensor
+    zero_rows: torch.Tensor
+    chunk_col: torch.Tensor
+    chunk_row: torch.Tensor
+
+    @property
+    def nseg(self) -> int:
+        return int(self.seg_row.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +133,7 @@ class TiledPlanV2:
     fill: float = 1.0
     kt: int = 256              # the JAX kernel's K tile (VMEM budget)
     gd: int = 1                # the JAX kernel's chunks per DMA
+    sched: Optional[RowScheduleV2] = None  # K8's walk (None with edge ids)
 
     @property
     def nct(self) -> int:
@@ -100,27 +167,58 @@ class TiledPlanV2:
     def device(self) -> torch.device:
         return self.edges.device
 
-    def slots(self) -> dict[str, torch.Tensor]:
-        """Every slot of the real chunks as flat (nc·eb,) tensors: global
-        ``row`` and ``col`` (int64), ``val`` (float32) and, for a with-eids
-        plan, ``eid`` (int32, −1 on pad slots)."""
-        nc, eb = self.nc, self.eb
-        dev = self.edges.device
-        e = self.edges[:nc].reshape(nc, self.planes, eb)
+    def chunk_offsets(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Each real chunk's first global row and first global column,
+        (nc,) int64 each, from its cell (``cell_starts``) and
+        ``rb_locals``."""
+        nc, dev = self.nc, self.edges.device
         cell = torch.searchsorted(self.cell_starts,
                                   torch.arange(nc, dtype=torch.int32,
                                                device=dev),
                                   right=True).long() - 1
         rblock = ((cell // self.nct) * self.nrb_s
                   + self.rb_locals[:nc].long())
+        return rblock * self.rb, (cell % self.nct) * self.ct
+
+    def slots(self) -> dict[str, torch.Tensor]:
+        """Every slot of the real chunks as flat (nc·eb,) tensors: global
+        ``row`` and ``col`` (int64), ``val`` (float32) and, for a with-eids
+        plan, ``eid`` (int32, −1 on pad slots)."""
+        nc, eb = self.nc, self.eb
+        e = self.edges[:nc].reshape(nc, self.planes, eb)
+        row0, col0 = self.chunk_offsets()
         out = dict(
-            row=(rblock[:, None] * self.rb + e[:, 2].long()).reshape(-1),
-            col=((cell % self.nct)[:, None] * self.ct
-                 + e[:, 0].long()).reshape(-1),
+            row=(row0[:, None] + e[:, 2].long()).reshape(-1),
+            col=(col0[:, None] + e[:, 0].long()).reshape(-1),
             val=e[:, 1].contiguous().view(torch.float32).reshape(-1))
         if self.with_eids:
             out["eid"] = e[:, 3].reshape(-1)
         return out
+
+
+def derive_v2_schedule(plan: TiledPlanV2,
+                       seg_slots: int = ITEM_SLOTS) -> RowScheduleV2:
+    """K8's schedule of ``plan`` (without edge ids), from ``edges``,
+    ``rb_locals`` and ``cell_starts`` alone, on the plan's device."""
+    if plan.with_eids:
+        raise ValueError("K8 walks plans without edge ids; a with-eids plan "
+                         "is K7's")
+    if plan.nc * plan.eb >= 2**31:
+        raise ValueError(f"{plan.nc * plan.eb} slots: K8's int32 slot "
+                         "index overflows")
+    nc, eb = plan.nc, plan.eb
+    e = plan.edges[:nc].reshape(nc, 3, eb)
+    row0, col0 = plan.chunk_offsets()
+    flat = torch.nonzero(e[:, 1].reshape(-1).view(torch.float32) != 0
+                         ).reshape(-1)
+    row = (row0[:, None] + e[:, 2].long()).reshape(-1)[flat]
+    items = row_items(row, flat, plan.num_rows, seg_slots)
+    cnt = items["row_ptr"].diff()
+    zero_rows = torch.nonzero((cnt == 0) | (cnt > seg_slots)).reshape(-1)
+    return RowScheduleV2(**items,
+                         zero_rows=zero_rows.to(torch.int32).contiguous(),
+                         chunk_col=col0.to(torch.int32).contiguous(),
+                         chunk_row=row0.to(torch.int32).contiguous())
 
 
 def build_plan_v2_arrays(
@@ -142,7 +240,8 @@ def build_plan_v2_arrays(
     (kt·rb·4)`` row blocks), so the two plans are equal; the CUDA kernels
     do not depend on them.  ``with_eids`` adds the edge-id plane (the
     max/min kernel needs it); its ties go to the lowest id, which is the
-    first edge of a row in plan order for (row, col)-sorted input.
+    first edge of a row in plan order for (row, col)-sorted input.  A plan
+    without edge ids carries K8's schedule.
     """
     if eb % _LANE or rb % _LANE or ct % _LANE:
         raise ValueError("rb, ct and eb must be multiples of 128")
@@ -161,10 +260,21 @@ def build_plan_v2_arrays(
     def plan(edges, rb_locals, cell_starts, nc, fill):
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-        return TiledPlanV2(
+        p = TiledPlanV2(
             edges=t(edges), rb_locals=t(rb_locals), cell_starts=t(cell_starts),
             rb=rb, ct=ct, eb=eb, nc=nc, nrb_s=nrb_s, n_super=n_super,
             num_rows=num_rows, num_cols=num_cols, fill=fill, kt=kt, gd=gd)
+        if with_eids:
+            return p
+        t0 = time.perf_counter()
+        p = dataclasses.replace(p, sched=derive_v2_schedule(p))
+        s = p.sched
+        _log.info("v2 schedule: %d real slots of %d in %d items, %d split "
+                  "rows, %d rows zeroed first; derived in %.3fs",
+                  s.order.shape[0], nc * eb, s.nseg,
+                  int((s.row_ptr.diff() > ITEM_SLOTS).sum()),
+                  s.zero_rows.shape[0], time.perf_counter() - t0)
+        return p
 
     if nnz == 0:
         return plan(np.zeros((1 + _TAIL, n_planes, sub, _LANE), np.int32),

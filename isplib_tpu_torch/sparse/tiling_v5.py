@@ -25,20 +25,36 @@ costs; none of them bounds a Hopper kernel, so they are gone:
   of 10⁴ edges spreads over many warps.
 
 Pad edges are never part of a plan: no kernel reads x row ``num_cols``.
+
+Beside those arrays, and never in place of them, a plan with dense blocks
+carries the schedule that K2 walks (``sched``, a ``BSRSchedule`` as K9's),
+derived once per plan on the plan's device: every block as a member, the
+block-rows cut into pieces of at most ``PIECE_BLOCKS`` blocks, so that one
+CTA owns a block-row (or a piece of a hub block-row) and stores its output
+once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
+from typing import Optional
 
 import numpy as np
 import torch
 
-__all__ = ["HybridPlan", "build_hybrid_plan", "BS", "SEG_EDGES"]
+from .tiling_v3 import MAX_PIECE, BSRSchedule, cut_pieces
+
+__all__ = ["HybridPlan", "build_hybrid_plan", "derive_block_schedule", "BS",
+           "SEG_EDGES", "PIECE_BLOCKS"]
 
 BS = 128          # dense block edge
 SEG_EDGES = 256   # residual edges per warp work item
 MAX_BLOCK_BYTES = 2 << 30  # device bytes the dense half's blocks may take
+PIECE_BLOCKS = 16  # blocks a K2 CTA takes at most (probe_bsr_v3.py)
+
+_log = logging.getLogger(__name__)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -62,6 +78,7 @@ class HybridPlan:
     dense_edges: int
     sparse_edges: int
     dense_threshold: int       # the threshold applied after the block cap
+    sched: Optional[BSRSchedule] = None  # K2's walk (None without blocks)
 
     @property
     def nb(self) -> int:
@@ -81,6 +98,26 @@ class HybridPlan:
         plus residual edges."""
         return (self.dense_edges + self.sparse_edges) / max(
             self.nb * BS * BS + self.sparse_edges, 1)
+
+
+def derive_block_schedule(plan: HybridPlan,
+                          piece_blocks: int = PIECE_BLOCKS) -> BSRSchedule:
+    """K2's schedule of ``plan``, from ``blk_rowptr`` and ``blk_col``, on
+    the plan's device.  The blocks are sorted by block-row already, so
+    member ``j`` is block ``j`` (with its block column) and block-row
+    ``br``'s members are ``blk_rowptr[br]:blk_rowptr[br + 1]``; pieces and
+    zeroed block-rows as in K9's schedule.  K2 keeps a piece's list in
+    shared memory, so a piece holds at most ``MAX_PIECE`` blocks."""
+    if not 1 <= piece_blocks <= MAX_PIECE:
+        raise ValueError(f"piece_blocks={piece_blocks}: K2 takes pieces of "
+                         f"1 to {MAX_PIECE} blocks")
+    dev = plan.blk_col.device
+    members = torch.stack([torch.arange(plan.nb, device=dev),
+                           plan.blk_col.long()], 1)
+    pieces, zero_rbs = cut_pieces(plan.blk_rowptr.diff().long(),
+                                  piece_blocks)
+    return BSRSchedule(members=members.to(torch.int32).contiguous(),
+                       pieces=pieces, zero_rbs=zero_rbs)
 
 
 def build_hybrid_plan(
@@ -144,7 +181,7 @@ def build_hybrid_plan(
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
-    return HybridPlan(
+    plan = HybridPlan(
         blocks=blocks, blk_rowptr=i32(blk_rowptr),
         blk_col=i32(dense_ids % n_bc),
         res_rowptr=i32(res_rowptr), res_col=i32(r_col),
@@ -152,3 +189,13 @@ def build_hybrid_plan(
         seg_ptr=i32(seg_ptr), seg_row=i32(seg_row),
         num_rows=num_rows, num_cols=num_cols,
         dense_edges=nnz - nr, sparse_edges=nr, dense_threshold=thr)
+    if nb == 0:
+        return plan
+    t0 = time.perf_counter()
+    plan = dataclasses.replace(plan, sched=derive_block_schedule(plan))
+    s = plan.sched
+    _log.info("v5 schedule: %d blocks over %d block-rows (at most %d in "
+              "one) in %d pieces, %d block-rows zeroed first; derived in "
+              "%.3fs", nb, n_br, int(plan.blk_rowptr.diff().max()),
+              s.n_pieces, s.zero_rbs.shape[0], time.perf_counter() - t0)
+    return plan

@@ -253,7 +253,9 @@ def same_plan(p, q) -> None:
     assert type(p) is type(q)
     for f in dataclasses.fields(p):
         a, b = getattr(p, f.name), getattr(q, f.name)
-        if isinstance(a, torch.Tensor):
+        if dataclasses.is_dataclass(a):  # a kernel's schedule
+            same_plan(a, b)
+        elif isinstance(a, torch.Tensor):
             assert torch.equal(a, b), f.name
         else:
             assert a == b, f.name

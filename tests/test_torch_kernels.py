@@ -9,6 +9,8 @@ to hold each kernel against its plain version; ``chip_smoke.py`` does the
 same at the main path's shapes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -23,9 +25,11 @@ from isplib_tpu_torch.ops.semiring import (FusedOp, Reduce, ReduceOp,
                                            ScalarOp, ScaleOp, VectorOp)
 from isplib_tpu_torch.sparse.tiling import (SEG_SLOTS, build_plan_v1_arrays,
                                             build_tiling)
-from isplib_tpu_torch.sparse.tiling_v2 import build_plan_v2_arrays
+from isplib_tpu_torch.sparse.tiling_v2 import (build_plan_v2_arrays,
+                                               derive_v2_schedule)
 from isplib_tpu_torch.sparse.tiling_v3 import build_plan_v3_arrays
-from isplib_tpu_torch.sparse.tiling_v5 import SEG_EDGES
+from isplib_tpu_torch.sparse.tiling_v5 import (SEG_EDGES, build_hybrid_plan,
+                                               derive_block_schedule)
 
 
 def hub_graph(device, num_rows=1200, num_cols=1100, nnz=6000):
@@ -315,16 +319,16 @@ def test_fused_mm_on_cuda_runs_the_kernels(cuda):
     assert_near_plain(grads[1], grads[3])
 
 
-def v2_case(device, geometry, ties, k):
-    """A with-eids v2 plan of hub_graph's (or zero_tie_graph's) edges with
-    ``geometry`` = (rb, ct, eb), and x."""
+def v2_case(device, geometry, ties, k, with_eids=True):
+    """A v2 plan (with edge ids: K7's) of hub_graph's (or
+    zero_tie_graph's) edges with ``geometry`` = (rb, ct, eb), and x."""
     g = zero_tie_graph("cpu") if ties else hub_graph("cpu")
     n = g.nnz
     rb, ct, eb = geometry
     plan = build_plan_v2_arrays(
         g.row[:n].numpy(), g.col[:n].numpy(), g.value[:n].numpy(),
-        g.num_rows, g.num_cols, rb=rb, ct=ct, eb=eb, k=k, with_eids=True,
-        device=device)
+        g.num_rows, g.num_cols, rb=rb, ct=ct, eb=eb, k=k,
+        with_eids=with_eids, device=device)
     x = torch.randn(g.num_cols, k, device=device)
     return plan, (x.round() if ties else x), g.nnz_padded - 1
 
@@ -334,7 +338,7 @@ def v2_case(device, geometry, ties, k):
 @pytest.mark.parametrize("geometry", [(128, 128, 512), (256, 512, 512)])
 def test_v2_sum_kernel_matches_plain_version(cuda, geometry, k):
     """K8: fp32 on both sides, only the sum order differs (atomics)."""
-    plan, x, _ = v2_case(cuda, geometry, False, k)
+    plan, x, _ = v2_case(cuda, geometry, False, k, with_eids=False)
     before = spmm_v2.LAUNCHES
     got = spmm_v2.spmm_v2(plan, x)
     want = spmm_v2.spmm_v2_plain(plan, x)
@@ -544,3 +548,103 @@ def test_versions_on_cuda_run_their_kernels(cuda, version):
     for got, want in zip(outs[0], outs[1]):
         assert float((got - want).abs().max()) <= tol * float(
             want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# K2 and K8 over their schedules: forced splits, K8's two output modes, and
+# the wrappers' contract for plans without a schedule
+# ---------------------------------------------------------------------------
+
+def test_v2_v5_cpu_tensors_run_the_plain_versions_without_schedules():
+    """On the CPU the wrappers run the plain versions whatever the plan's
+    schedule (a plan from an old cache has none) and count no launch."""
+    row, col, val, r, c = coo_case("split", "fwd")
+    p5 = build_hybrid_plan(row, col, val, r, c, "cpu", dense_threshold=16)
+    p2 = build_plan_v2_arrays(row, col, val, r, c, device="cpu")
+    assert p5.sched is not None and p2.sched is not None
+    x = torch.randn(c, 8)
+    before = (spmm_bsr.LAUNCHES, spmm_v2.LAUNCHES)
+    for plan, call in ((p5, spmm_bsr.spmm_bsr), (p2, spmm_v2.spmm_v2)):
+        want = call(plan, x)
+        got = call(dataclasses.replace(plan, sched=None), x)
+        assert torch.equal(got, want)
+    out = torch.ones(r, 8)
+    spmm_v2.spmm_v2(dataclasses.replace(p2, sched=None), x, out)
+    assert torch.allclose(out, 1 + spmm_v2.spmm_v2_plain(p2, x))
+    assert (spmm_bsr.LAUNCHES, spmm_v2.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+def test_v2_v5_wrappers_raise_without_schedules(cuda):
+    """For a CUDA tensor a plan without its schedule raises: the old
+    kernels are gone and no plain version stands in."""
+    row, col, val, r, c = coo_case("split", "fwd")
+    p5 = build_hybrid_plan(row, col, val, r, c, cuda, dense_threshold=16)
+    p2 = build_plan_v2_arrays(row, col, val, r, c, device=cuda)
+    x = torch.randn(c, 8, device=cuda)
+    with pytest.raises(ValueError, match="K2 schedule"):
+        spmm_bsr.spmm_bsr(dataclasses.replace(p5, sched=None), x)
+    with pytest.raises(ValueError, match="K8 schedule"):
+        spmm_v2.spmm_v2(dataclasses.replace(p2, sched=None), x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 8, 32, 41, 96, 130, 602])
+@pytest.mark.parametrize("piece_blocks", [4, 32])
+@pytest.mark.parametrize("variant", ["hub", "split"])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_bsr_kernel_pieces_match_plain_version(cuda, piece_blocks, k,
+                                               variant, direction):
+    """K2 over its schedule, block-rows cut into pieces of 4 blocks (most
+    block-rows split) or 32: the same bf16 rounding on both sides, only
+    the sum order differs; block-rows without blocks are zeroed."""
+    row, col, val, r, c = coo_case(variant, direction)
+    plan = build_hybrid_plan(row, col, val, r, c, cuda, dense_threshold=16)
+    plan = dataclasses.replace(plan, sched=derive_block_schedule(
+        plan, piece_blocks=piece_blocks))
+    assert plan.nb > 0
+    if variant == "split" and direction == "fwd":
+        assert int(plan.sched.pieces[:, 3].sum()) > 0
+        assert plan.sched.zero_rbs.numel() > 0
+    x = torch.randn(plan.num_cols, k, device=cuda)
+    before = spmm_bsr.LAUNCHES
+    got = spmm_bsr.spmm_bsr(plan, x)
+    want = spmm_bsr.spmm_bsr_plain(plan, x)
+    torch.cuda.synchronize()
+    assert spmm_bsr.LAUNCHES == before + 1
+    assert_near_plain(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 8, 32, 41, 130, 602])
+@pytest.mark.parametrize("seg_slots", [32, 256])
+@pytest.mark.parametrize("mode", ["write", "add"])
+@pytest.mark.parametrize("variant", ["hub", "split"])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_v2_sum_kernel_modes_match_plain_version(cuda, mode, seg_slots, k,
+                                                 variant, direction):
+    """K8 over its schedule, rows cut into items of 32 slots (hub rows
+    split) or 256: a fresh output (rows without slots written as zeros,
+    over garbage the pre-pass must clear) and an output it adds into."""
+    row, col, val, r, c = coo_case(variant, direction)
+    plan = build_plan_v2_arrays(row, col, val, r, c, rb=128, ct=128,
+                                eb=512, device=cuda)
+    plan = dataclasses.replace(plan, sched=derive_v2_schedule(
+        plan, seg_slots=seg_slots))
+    if direction == "fwd":
+        assert int((plan.sched.row_ptr.diff() > seg_slots).sum()) > 0
+        assert int((plan.sched.row_ptr.diff() == 0).sum()) > 0
+    x = torch.randn(plan.num_cols, k, device=cuda)
+    base = torch.randn(plan.num_rows, k, device=cuda)
+    before = spmm_v2.LAUNCHES
+    # garbage where the caching allocator will likely place the output
+    torch.empty(plan.num_rows, k, device=cuda).fill_(float("nan"))
+    if mode == "write":
+        got = spmm_v2.spmm_v2(plan, x)
+        want = spmm_v2.spmm_v2_plain(plan, x)
+    else:
+        got = spmm_v2.spmm_v2(plan, x, base.clone())
+        want = base + spmm_v2.spmm_v2_plain(plan, x)
+    torch.cuda.synchronize()
+    assert spmm_v2.LAUNCHES == before + 1
+    assert_near_plain(got, want)

@@ -16,12 +16,17 @@
   ``grad_x`` and ``grad_value``, against JAX's XLA path and ``jax.grad``:
   1e-5 for the fp32 versions 1, 2 and 4, the bf16 contract (rtol 2e-2,
   atol 2e-2·max|ref|) for versions 3 and 5, whose dense blocks are bf16;
-* K9's and K10's schedules against a numpy recount from the JAX plan's
-  own arrays (members, row blocks, block columns, pieces; slot order, row
-  pointers, work items), and a plain walk over each against the kernels'
-  plain versions and the interpret-mode Pallas kernels (1e-5 of the
-  scale), on a hub case with a split row block, a split row and an empty
-  row block;
+* K9's, K10's and K8's schedules against a numpy recount from the JAX
+  plan's own arrays (members, row blocks, block columns, pieces; slot
+  order, row pointers, work items, chunk offsets, zeroed rows) and K2's
+  against its plan's ``blk_rowptr``, and a plain walk over each against
+  the kernels' plain versions (1e-5 of the scale, with forced small pieces
+  and items too) and the interpret-mode Pallas kernels (1e-5 of the
+  scale; K2's walk with the residual half against JAX's
+  ``spmm_hybrid_v5`` within the bf16 contract), on a hub case with a
+  split row block, a split row and an empty row block; the derivation
+  sites (versions 2, 3 and 5, the sharded routes; none for with-eids
+  plans);
 * a forward-only tiling runs the reference transpose path for ``grad_x``;
   ``build_tiling`` rejects keys foreign to a version; ``tiling=`` on graph
   construction.
@@ -41,24 +46,32 @@ import isplib_tpu.native as jax_native
 import isplib_tpu_torch as pt
 from isplib_tpu.kernels.spmm_bsr import spmm_bsr as jax_spmm_bsr
 from isplib_tpu.kernels.spmm_bsr import spmm_hybrid as jax_spmm_hybrid
+from isplib_tpu.kernels.spmm_bsr2 import spmm_hybrid_v5 as jax_spmm_hybrid_v5
 from isplib_tpu.kernels.spmm_pallas import spmm_tiled as jax_spmm_tiled
 from isplib_tpu.kernels.spmm_pallas_v2 import spmm_tiled_v2
 from isplib_tpu.sparse.graph import _build_arrays as jax_build_arrays
 from isplib_tpu.sparse.tiling import _build_plan_arrays as jax_build_v1
 from isplib_tpu.sparse.tiling import \
     build_tiling_from_numpy as jax_build_tiling
+from isplib_tpu.sparse.tiling_v2 import build_plan_v2_arrays as jax_build_v2
 from isplib_tpu.sparse.tiling_v3 import build_plan_v3_arrays as jax_build_v3
+from isplib_tpu.sparse.tiling_v5 import build_plan_v5_arrays as jax_build_v5
+from isplib_tpu_torch.dist import partition_rows
 from isplib_tpu_torch.kernels import spmm_hybrid
+from isplib_tpu_torch.kernels.spmm_bsr import spmm_bsr_plain
 from isplib_tpu_torch.kernels.spmm_bsr_v3 import spmm_bsr_v3_plain
 from isplib_tpu_torch.kernels.spmm_rowblock import spmm_rowblock_plain
-from isplib_tpu_torch.sparse import tiling, tiling_v3
+from isplib_tpu_torch.kernels.spmm_stream import spmm_stream_plain
+from isplib_tpu_torch.kernels.spmm_v2 import spmm_v2_plain
+from isplib_tpu_torch.sparse import tiling, tiling_v2, tiling_v3, tiling_v5
 from isplib_tpu_torch.sparse.tiling import (TiledGraph, TiledPlan,
                                             build_plan_v1_arrays,
                                             build_tiling)
-from isplib_tpu_torch.sparse.tiling_v2 import TiledPlanV2
+from isplib_tpu_torch.sparse.tiling_v2 import (ITEM_SLOTS, TiledPlanV2,
+                                               build_plan_v2_arrays)
 from isplib_tpu_torch.sparse.tiling_v3 import (HybridPlanV3,
                                                build_plan_v3_arrays)
-from isplib_tpu_torch.sparse.tiling_v5 import HybridPlan
+from isplib_tpu_torch.sparse.tiling_v5 import HybridPlan, build_hybrid_plan
 
 
 def coo(seed=0, num_rows=700, num_cols=650, nnz=9000):
@@ -595,3 +608,273 @@ def test_v1_schedule_walk_matches_pallas():
     want = jax_spmm_tiled(jp, jnp.asarray(x), compute_dtype=jnp.float32,
                           precision=jax.lax.Precision.HIGHEST)
     scale_close(walk_v1(p, torch.from_numpy(x)), want, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K2's schedule over the v5 plan and K8's over the v2 plan: a recount (K2's
+# from the plan's blk_rowptr, K8's from the JAX plan's own arrays, pads
+# included), a plain walk over each against the kernels' plain versions
+# with forced small pieces and items, and the walks against JAX
+# ---------------------------------------------------------------------------
+
+V5_SCHEDULE_CASES = {"coo-16": ("coo", 16), "hub-12": ("hub", 12)}
+
+
+def v5_case(case):
+    graph, thr = V5_SCHEDULE_CASES[case]
+    row, col, val, r, c = hub_coo() if graph == "hub" else coo()
+    return (row, col, val, r, c), thr
+
+
+def v5_plan(case, **kw):
+    (row, col, val, r, c), thr = v5_case(case)
+    return build_hybrid_plan(row, col, val, r, c, "cpu",
+                             dense_threshold=thr, **kw)
+
+
+@pytest.mark.parametrize("case", sorted(V5_SCHEDULE_CASES))
+def test_v5_schedule_matches_a_recount(case):
+    """Every block a member, in plan order, with its block column; pieces
+    cover each block-row's blocks once, at most PIECE_BLOCKS each,
+    longest first, split where the block-row holds more; zeroed
+    block-rows: those without blocks and the split ones."""
+    p = v5_plan(case)
+    s = p.sched
+    rowptr, blk_col = p.blk_rowptr.numpy(), p.blk_col.numpy()
+    np.testing.assert_array_equal(
+        s.members.numpy(), np.stack([np.arange(p.nb), blk_col], 1))
+    cnt = np.diff(rowptr)
+    pieces = s.pieces.numpy()
+    covered = np.concatenate([np.arange(a, b) for a, b, _, _ in pieces])
+    np.testing.assert_array_equal(np.sort(covered), np.arange(p.nb))
+    sizes = pieces[:, 1] - pieces[:, 0]
+    assert sizes.min() >= 1 and sizes.max() <= tiling_v5.PIECE_BLOCKS
+    assert (np.diff(sizes) <= 0).all()
+    for a, b, br, split in pieces:
+        assert rowptr[br] <= a < b <= rowptr[br + 1]
+        assert split == (cnt[br] > tiling_v5.PIECE_BLOCKS)
+    assert pieces.shape[0] == (-(-cnt // tiling_v5.PIECE_BLOCKS)).sum()
+    np.testing.assert_array_equal(
+        s.zero_rbs.numpy(),
+        np.flatnonzero((cnt == 0) | (cnt > tiling_v5.PIECE_BLOCKS)))
+    if case == "hub-12":
+        assert pieces[:, 3].any() and (cnt == 0).any()
+
+
+@pytest.mark.parametrize("piece_blocks", [0, 65])
+def test_v5_schedule_rejects_pieces_k2_cannot_hold(piece_blocks):
+    """K2 keeps a piece's block list in shared memory: 1 to 64."""
+    p = v5_plan("hub-12")
+    with pytest.raises(ValueError, match="piece_blocks"):
+        tiling_v5.derive_block_schedule(p, piece_blocks=piece_blocks)
+    s = tiling_v5.derive_block_schedule(p, piece_blocks=64)
+    assert int((s.pieces[:, 1] - s.pieces[:, 0]).max()) <= 64
+
+
+def walk_v5(plan, x):
+    """K2's walk in plain PyTorch: each piece sums its blocks (bf16) times
+    the bf16-rounded x tiles of their block columns, in fp32, and adds the
+    sum into its block-row."""
+    s, k = plan.sched, x.shape[1]
+    xb = x.new_zeros(-(-plan.num_cols // 128) * 128, k)
+    xb[: plan.num_cols] = x.to(torch.bfloat16).float()
+    out = x.new_zeros(plan.n_br * 128, k)
+    for a, b, br, _ in s.pieces.tolist():
+        acc = x.new_zeros(128, k)
+        for j, bc in s.members[a:b].tolist():
+            acc += plan.blocks[j].float() @ xb[bc * 128:(bc + 1) * 128]
+        out[br * 128:(br + 1) * 128] += acc
+    return out[: plan.num_rows]
+
+
+@pytest.mark.parametrize("piece_blocks", [4, tiling_v5.PIECE_BLOCKS])
+@pytest.mark.parametrize("case", sorted(V5_SCHEDULE_CASES))
+def test_v5_schedule_walk_matches_plain_version(case, piece_blocks):
+    p = v5_plan(case)
+    p = dataclasses.replace(p, sched=tiling_v5.derive_block_schedule(
+        p, piece_blocks=piece_blocks))
+    if piece_blocks == 4:
+        assert int(p.sched.pieces[:, 3].sum()) > 0
+    x = torch.from_numpy(np.random.default_rng(16).normal(
+        size=(p.num_cols, 24)).astype(np.float32))
+    scale_close(walk_v5(p, x), spmm_bsr_plain(p, x), 1e-5)
+
+
+def test_v5_schedule_walk_matches_pallas():
+    """The hub case, whose block-row 0 is split and block-row 2 empty: the
+    walk plus the residual half against JAX's interpret-mode
+    ``spmm_hybrid_v5`` within the bf16 contract of tests/test_v5.py (JAX
+    rounds its residual products to bf16; the port does not)."""
+    (row, col, val, r, c), thr = v5_case("hub-12")
+    p = v5_plan("hub-12")
+    assert int(p.sched.pieces[:, 3].sum()) > 0
+    assert int(p.sched.zero_rbs.numel()) > 0
+    jp = jax_build_v5(row, col, val, r, c, rb=128, k=8,
+                      dense_threshold=thr, S=2, g=4)
+    assert jp.dense_edges == p.dense_edges
+    x = np.random.default_rng(17).normal(size=(c, 8)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    got = walk_v5(p, xt)
+    spmm_stream_plain(p, xt, got)
+    want = np.asarray(jax_spmm_hybrid_v5(jp, jnp.asarray(x)))
+    scale_close(got, want, 2e-2)
+
+
+V2_SCHEDULE_CASES = {"256-512-512": ("coo", (256, 512, 512)),
+                     "128-128-128": ("coo", (128, 128, 128)),
+                     "hub": ("hub", (128, 256, 256))}
+
+
+def v2_case(case):
+    graph, geometry = V2_SCHEDULE_CASES[case]
+    return (hub_coo() if graph == "hub" else coo()), geometry
+
+
+def v2_plan(case):
+    (row, col, val, r, c), (rb, ct, eb) = v2_case(case)
+    return build_plan_v2_arrays(row, col, val, r, c, rb=rb, ct=ct, eb=eb,
+                                device="cpu")
+
+
+def v2_recount(jp):
+    """(global row, flat slot, global col) of every real slot of a JAX v2
+    plan, sorted as the schedule orders them, and each chunk's first row
+    and column, from the plan's planes, ``rb_locals`` and
+    ``cell_starts``."""
+    e = np.asarray(jp.edges)[:jp.nc].reshape(jp.nc, 3, jp.eb)
+    cs, rbl = np.asarray(jp.cell_starts), np.asarray(jp.rb_locals)
+    nct = -(-jp.num_cols // jp.ct)
+    cell = np.searchsorted(cs, np.arange(jp.nc), side="right") - 1
+    row0 = ((cell // nct) * jp.nrb_s + rbl[:jp.nc]).astype(np.int64) * jp.rb
+    col0 = (cell % nct).astype(np.int64) * jp.ct
+    c, s = np.nonzero(e[:, 1].view(np.float32) != 0)
+    slots = sorted(zip((row0[c] + e[c, 2, s]).tolist(),
+                       (c * jp.eb + s).tolist(),
+                       (col0[c] + e[c, 0, s]).tolist()))
+    return slots, row0, col0
+
+
+@pytest.mark.parametrize("case", sorted(V2_SCHEDULE_CASES))
+def test_v2_schedule_matches_a_recount(case):
+    """Slot order, row pointers and the chunks' offsets from the JAX
+    plan's arrays, which equal the port's pads included; work items cover
+    each row's slots once, at most ITEM_SLOTS each, in order; zeroed rows:
+    those without slots and the split ones."""
+    (row, col, val, r, c), (rb, ct, eb) = v2_case(case)
+    p = v2_plan(case)
+    jp = jax_build_v2(row, col, val, r, c, rb=rb, ct=ct, eb=eb)
+    equal_arrays(p.edges, jp.edges, "edges")
+    s = p.sched
+    slots, row0, col0 = v2_recount(jp)
+    np.testing.assert_array_equal(s.order.numpy(), [q for _, q, _ in slots])
+    np.testing.assert_array_equal(s.chunk_row.numpy(), row0)
+    np.testing.assert_array_equal(s.chunk_col.numpy(), col0)
+    # a slot decodes through its chunk's column offset alone
+    e = p.edges[:p.nc].reshape(p.nc, 3, p.eb)
+    q = s.order.long()
+    ch = q // p.eb
+    np.testing.assert_array_equal(
+        (s.chunk_col.long()[ch] + e[ch, 0, q % p.eb]).numpy(),
+        [cl for _, _, cl in slots])
+    cnt = np.bincount([rw for rw, _, _ in slots], minlength=r)
+    np.testing.assert_array_equal(s.row_ptr.numpy(),
+                                  np.concatenate([[0], np.cumsum(cnt)]))
+    seg_ptr, seg_row = s.seg_ptr.numpy(), s.seg_row.numpy()
+    want_seg = [(rw, a, min(a + ITEM_SLOTS, int(s.row_ptr[rw + 1])))
+                for rw in range(r)
+                for a in range(int(s.row_ptr[rw]), int(s.row_ptr[rw + 1]),
+                               ITEM_SLOTS)]
+    assert list(zip(seg_row.tolist(), seg_ptr[:-1].tolist(),
+                    seg_ptr[1:].tolist())) == want_seg
+    np.testing.assert_array_equal(
+        s.zero_rows.numpy(), np.flatnonzero((cnt == 0) | (cnt > ITEM_SLOTS)))
+    if case == "hub":
+        assert cnt.max() > ITEM_SLOTS and (cnt == 0).any()
+
+
+def test_v2_schedule_rejects_what_k8_cannot_walk():
+    """Work items of at least one slot; no schedule of a with-eids plan
+    (K7's, which carries none)."""
+    p = v2_plan("hub")
+    with pytest.raises(ValueError, match="seg_slots"):
+        tiling_v2.derive_v2_schedule(p, seg_slots=0)
+    (row, col, val, r, c), (rb, ct, eb) = v2_case("hub")
+    pe = build_plan_v2_arrays(row, col, val, r, c, rb=rb, ct=ct, eb=eb,
+                              with_eids=True, device="cpu")
+    assert pe.sched is None
+    with pytest.raises(ValueError, match="edge ids"):
+        tiling_v2.derive_v2_schedule(pe)
+
+
+def walk_v2(plan, x):
+    """K8's walk in plain PyTorch: each work item sums its slots' values
+    times the x rows of their global columns (the chunk's column offset
+    plus plane 0) into its row."""
+    s = plan.sched
+    e = plan.edges[:plan.nc].reshape(plan.nc, 3, plan.eb)
+    out = x.new_zeros(plan.num_rows, x.shape[1])
+    for j, rw in enumerate(s.seg_row.tolist()):
+        q = s.order[s.seg_ptr[j]:s.seg_ptr[j + 1]].long()
+        ch, sl = q // plan.eb, q % plan.eb
+        assert bool((s.chunk_row.long()[ch] + e[ch, 2, sl] == rw).all())
+        col = s.chunk_col.long()[ch] + e[ch, 0, sl].long()
+        val = e[ch, 1, sl].view(torch.float32)
+        out[rw] += (val[:, None] * x[col]).sum(0)
+    return out
+
+
+@pytest.mark.parametrize("seg_slots", [32, ITEM_SLOTS, 256])
+@pytest.mark.parametrize("case", sorted(V2_SCHEDULE_CASES))
+def test_v2_schedule_walk_matches_plain_version(case, seg_slots):
+    p = v2_plan(case)
+    p = dataclasses.replace(p, sched=tiling_v2.derive_v2_schedule(
+        p, seg_slots=seg_slots))
+    if seg_slots == 32:
+        assert int((p.sched.row_ptr.diff() > 32).sum()) > 0
+    x = torch.from_numpy(np.random.default_rng(18).normal(
+        size=(p.num_cols, 24)).astype(np.float32))
+    scale_close(walk_v2(p, x), spmm_v2_plain(p, x), 1e-5)
+
+
+def test_v2_schedule_walk_matches_pallas():
+    """The hub case, a row split over work items and empty rows, against
+    the interpret-mode Pallas ``spmm_tiled_v2`` in fp32."""
+    (row, col, val, r, c), (rb, ct, eb) = v2_case("hub")
+    p = v2_plan("hub")
+    jp = jax_build_v2(row, col, val, r, c, rb=rb, ct=ct, eb=eb)
+    x = np.random.default_rng(19).normal(size=(c, 8)).astype(np.float32)
+    want = spmm_tiled_v2(jp, jnp.asarray(x), compute_dtype=jnp.float32)
+    scale_close(walk_v2(p, torch.from_numpy(x)), want, 1e-5)
+
+
+@pytest.mark.parametrize("version", [2, 3, 5])
+def test_plans_carry_their_kernels_schedules(version):
+    """Both directions of ``build_tiling(version=2|5)`` and the version-3
+    residuals carry K8's or K2's schedule; the sharded route's plans too
+    (version 2: K8's; version 5: K2's where a shard plan has blocks); its
+    with-eids max/min plans carry none."""
+    row, col, val, r, c = coo(20, num_rows=640, num_cols=640)
+    g = pt.from_edge_index(np.stack([col, row]), num_nodes=r,
+                           num_src_nodes=c, edge_value=val,
+                           edge_multiple=128, device="cpu")
+    kw = {2: dict(rb=128, ct=128, eb=128),
+          3: dict(rb=128, ct=128, eb=128, dense_threshold=250, g=4),
+          5: dict(dense_threshold=250)}[version]
+    tiled = build_tiling(g, version=version, k=16, **kw)
+    for plan in (tiled.fwd, tiled.bwd):
+        if version == 3:
+            assert plan.bsr.sched is not None
+            plan = plan.residual
+        if version == 5:
+            assert plan.nb > 0 and plan.sparse_edges > 0
+        assert plan.sched is not None
+    if version == 3:
+        return
+    sg = partition_rows(row, col, val, r, 4, device="cpu",
+                        tiling=dict(version=version))
+    plans = [p for i in sg.held for p in sg.shard(i).plans]
+    for plan in plans:
+        assert (plan.sched is None) == (version == 5 and plan.nb == 0)
+    assert all(p.sched is not None for p in plans[:1])  # shard 0, local
+    for plan in (p for i in sg.held for p in sg.shard(i).plans_mm):
+        assert plan.with_eids and plan.sched is None

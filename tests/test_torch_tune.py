@@ -400,23 +400,27 @@ def test_plan_cache_roundtrip_keeps_dtypes(cfg, tmp_path, monkeypatch):
         assert blocks.dtype == torch.bfloat16 and blocks.numel() > 0
 
 
-@pytest.mark.parametrize("cfg", [ONE_PER_VERSION[4], ONE_PER_VERSION[2]],
-                         ids=["v1", "v3"])
+@pytest.mark.parametrize("cfg", [ONE_PER_VERSION[4], ONE_PER_VERSION[2],
+                                 ONE_PER_VERSION[0], ONE_PER_VERSION[3]],
+                         ids=["v1", "v3", "v5", "v2"])
 def test_plan_cache_keeps_the_schedules(cfg, tmp_path, monkeypatch):
-    """The v1 and v3 plans carry K10's and K9's schedules; the cache
-    stores and loads them under format 2, and an entry written under
-    format 1 (plans without schedules) is missed, never read."""
-    assert plan_cache.PLAN_FORMAT_VERSION == 2
+    """The v1, v3, v5 and v2 plans carry K10's, K9's, K2's and K8's
+    schedules (the v3 plan's residual K8's too); the cache stores and loads
+    them under format 3, and an entry written under format 2 (v5 and v2
+    plans without schedules) is missed, never read."""
+    assert plan_cache.PLAN_FORMAT_VERSION == 3
     g = graph()
     arrays = host_arrays(g)
 
-    def sched(plan):
-        return plan.sched if cfg["version"] == 1 else plan.bsr.sched
+    def scheds(plan):
+        if cfg["version"] == 3:
+            return [plan.bsr.sched, plan.residual.sched]
+        return [plan.sched]
 
-    monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 1)
+    monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 2)
     build_tiling_from_numpy(g, arrays, k=32, cache_tag="s",
                             cache_dir=str(tmp_path), **cfg)
-    monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 2)
+    monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 3)
     built = build_tiling_from_numpy(g, arrays, k=32, cache_tag="s",
                                     cache_dir=str(tmp_path), **cfg)
     assert len(list(tmp_path.glob("plan_s_*.npz"))) == 2
@@ -425,8 +429,48 @@ def test_plan_cache_keeps_the_schedules(cfg, tmp_path, monkeypatch):
     loaded = build_tiling_from_numpy(g, arrays, k=32, cache_tag="s",
                                      cache_dir=str(tmp_path), **cfg)
     for f in ("fwd", "bwd"):
-        assert sched(getattr(loaded, f)) is not None
-        same_plan(sched(getattr(loaded, f)), sched(getattr(built, f)))
+        for got, want in zip(scheds(getattr(loaded, f)),
+                             scheds(getattr(built, f))):
+            assert got is not None
+            same_plan(got, want)
+
+
+@pytest.mark.parametrize("marked", [True, False],
+                         ids=["fmt-2", "no-fmt"])
+def test_plan_cache_format_2_file_is_a_logged_miss(marked, tmp_path,
+                                                    monkeypatch, capsys):
+    """A format-2 entry at the path a format-3 build looks up (one saved
+    under format 2, or one written before files carried their format) is
+    a logged miss: the plans are rebuilt, with their schedules, and the
+    entry is replaced."""
+    g = graph()
+    arrays = host_arrays(g)
+    cfg = dict(ONE_PER_VERSION[0])
+    built = build_tiling_from_numpy(g, arrays, k=32, cache_tag="f",
+                                    cache_dir=str(tmp_path), **cfg)
+    (path,) = tmp_path.glob("plan_f_*.npz")
+    old = dict(fwd=dataclasses.replace(built.fwd, sched=None),
+               bwd=dataclasses.replace(built.bwd, sched=None),
+               fwd_mm=built.fwd_mm, bwd_mm=built.bwd_mm)
+    if marked:
+        monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 2)
+        plan_cache.save_host_plans(str(path), old)
+        monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 3)
+    else:
+        arrays_out: list = []
+        spec = json.dumps(plan_cache._encode(old, arrays_out)).encode()
+        np.savez(path, spec=np.frombuffer(spec, np.uint8),
+                 **{f"a{i}": a for i, a in enumerate(arrays_out)})
+    capsys.readouterr()
+    assert plan_cache.load_host_plans(str(path)) is None
+    assert "is format 2, not 3; rebuilding" in capsys.readouterr().err
+    rebuilt = build_tiling_from_numpy(g, arrays, k=32, cache_tag="f",
+                                      cache_dir=str(tmp_path), **cfg)
+    assert "is format 2, not 3" in capsys.readouterr().err
+    for f in ("fwd", "bwd"):
+        same_plan(getattr(rebuilt, f).sched, getattr(built, f).sched)
+    loaded = plan_cache.load_host_plans(str(path))
+    assert loaded is not None and loaded["fwd"].sched is not None
 
 
 def test_plan_cache_keys_differ_for_different_edges(tmp_path):
@@ -451,7 +495,8 @@ def test_plan_cache_refuses_a_foreign_dataclass(tmp_path):
     # a spec that names a class outside the port decodes as a logged miss
     path = tmp_path / "q.npz"
     spec = json.dumps({"t": "dc", "cls": "os.path:join", "v": {}}).encode()
-    np.savez(path, spec=np.frombuffer(spec, np.uint8))
+    np.savez(path, spec=np.frombuffer(spec, np.uint8),
+             fmt=np.int32(plan_cache.PLAN_FORMAT_VERSION))
     assert plan_cache.load_host_plans(str(path)) is None
 
 
