@@ -50,12 +50,14 @@
    crc32("reddit"), 4096)``, tiled by ``build_tiling``.  K4 at K = 32 and
    41 on it and on the density-representative graph; K5 and both passes of
    K6 for the sigmoid embedding kernel, the t-distribution force model and
-   COPY_RHS + MEAN at K = 32.  Each held against its plain version at
-   1e-4·max|plain| and timed beside its bound and, where one PyTorch call
-   computes the same function, that call (``torch.sparse.sampled_addmm``
-   for K4, ``torch.sparse.mm`` for COPY_RHS + MEAN; none for the SOP
-   pipelines).  Then the paths, each with the launch counts set to 0 just
-   before it:
+   COPY_RHS + MEAN at K = 32, 41 and 256.  Each held against its plain
+   version at 1e-4·max|plain| and timed beside its bound (and its share of
+   it) and, where one PyTorch call computes the same function, that call
+   (``torch.sparse.sampled_addmm`` for K4; for COPY_RHS + MEAN
+   ``torch.sparse.mm`` of A with the mean's values times y for K5, and of
+   Aᵀ with the CSC values times g for K6, whose pass B alone runs there;
+   none for the SOP pipelines).  Then the paths, each with the launch
+   counts set to 0 just before it:
    * the FusedMM path: per SOP pipeline, 20 Adam steps on x, y (11648×32,
      ``default_rng(0)``) with loss ``0.5e-6·Σ fused_mm(tiled, x, y, op)²``
      (``bench_fused.py``'s loss); K5 and K6 must launch, the loss be finite
@@ -126,6 +128,7 @@ CUDA card it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -159,6 +162,7 @@ K_WIDE = 602              # the first layer of GraphSAGE and GIN
 MM_KS = (32, 41, K_WIDE)
 # scripts/bench_fused.py's graph and width
 RMAT_NODES, RMAT_EDGES, FUSED_K = 11_648, 5_730_794, 32
+FUSED_KS = (FUSED_K, 41, 256)   # the embedding width, a ragged and the widest
 SDDMM_KS = (32, 41)
 FUSED_STEPS = 20
 TUNE_ITERS = 10           # chain_time calls per configuration in the sweep
@@ -436,13 +440,39 @@ def check_and_time_sddmm(name, graph, tiled, k, gen):
 
 
 def fused_ops_per_edge_feature(op, backward: bool) -> int:
-    """fp32 operations per edge and feature: the VOP, the ROP, and the
-    accumulation s·v (forward); backward adds <g, v>, s·g, the ROP's
-    chain term and dVOP·ĝv into the accumulator."""
+    """fp32 operations per edge and feature that the function needs, an
+    FMA counting 2 and the per-edge scalars (the SOP, its derivative, the
+    weight) left out.  Forward: the VOP, the ROP and the accumulation s·v.
+    A backward pass: where the ROP is not NOOP, v again, t, <g, v> and the
+    ROP's chain term (+ŝ, or 2ŝ·v); then s·g, and its accumulation, an FMA
+    where dVOP/d(own) varies by feature (MUL, MAX, MIN), else an add."""
     from isplib_tpu_torch import ReduceOp, VectorOp
     vop = 0 if op.vop in (VectorOp.COPY_RHS, VectorOp.COPY_LHS) else 1
     rop = {ReduceOp.NOOP: 0, ReduceOp.DOT: 1, ReduceOp.NORM2: 2}[op.rop]
-    return vop + rop + 2 + (2 + 1 + rop + 2 if backward else 0)
+    if not backward:
+        return vop + rop + 2
+    chain = vop + rop + 2 + rop if rop else 0
+    varies = op.vop in (VectorOp.MUL, VectorOp.MAX, VectorOp.MIN)
+    return chain + 1 + (2 if varies else 1)
+
+
+def fused_operands(op, side: str) -> set:
+    """The operands among x, y and g that a FusedMM function reads, for
+    ``side`` "fwd" (K5), "A" (K6 pass A, grad_x) or "B" (pass B, grad_y):
+    forward the VOP's; a backward pass g, the VOP's where the ROP needs v,
+    and those dVOP/d(own) depends on (the other side's for MUL, both for
+    MAX and MIN)."""
+    from isplib_tpu_torch import ReduceOp, VectorOp
+    reads = {VectorOp.COPY_RHS: {"y"}, VectorOp.COPY_LHS: {"x"}}.get(
+        op.vop, {"x", "y"})
+    if side == "fwd":
+        return reads
+    need = {"g"} | (reads if op.rop is not ReduceOp.NOOP else set())
+    if op.vop is VectorOp.MUL:
+        need.add("y" if side == "A" else "x")
+    if op.vop in (VectorOp.MAX, VectorOp.MIN):
+        need |= {"x", "y"}
+    return need
 
 
 def check_and_time_fused(pname, op, graph, tiled, k, gen):
@@ -488,36 +518,49 @@ def check_and_time_fused(pname, op, graph, tiled, k, gen):
         for args in passes:
             k6.fused_bwd_plain(*args)
 
-    rows, cols = used(graph.row[:n]), used(graph.col[:n])
-    needs_x = op.vop is not VectorOp.COPY_RHS
-    seg = (2 * tiled.fwd_mm.nseg + 1) * 4 + tiled.fwd_mm.nseg * 4
-    seg_t = (2 * tiled.bwd_mm.nseg + 1) * 4 + tiled.bwd_mm.nseg * 4
-    fwd_bytes = (seg + n * 8 + (r * 4 if op.vsc is ScaleOp.MEAN else 0)
-                 + (rows * k * 4 if needs_x else 0) + cols * k * 4
-                 + r * k * 4)
-    pass_a = seg + n * 8 + 2 * rows * k * 4 + cols * k * 4 + r * k * 4
-    pass_b = seg_t + n * 8 + cols * k * 4 + 2 * rows * k * 4 + c * k * 4
-    lib_ms = None
+    # bytes: the segment list, col (and val but under VSC_NONE), the rows
+    # of the operands the function reads, each once (x and g rows of edges,
+    # y rows of columns), the degrees for MEAN, the output
+    row_bytes = {"x": used(graph.row[:n]) * k * 4, "g": used(
+        graph.row[:n]) * k * 4, "y": used(graph.col[:n]) * k * 4}
+    edge_bytes = n * (4 if op.vsc is ScaleOp.NONE else 8)
+
+    def side_bytes(plan, side, out_rows):
+        return ((3 * plan.nseg + 1) * 4 + edge_bytes + out_rows * k * 4
+                + sum(row_bytes[o] for o in fused_operands(op, side)))
+
+    fwd_bytes = (side_bytes(tiled.fwd_mm, "fwd", r)
+                 + (r * 4 if op.vsc is ScaleOp.MEAN else 0))
+    bwd_bytes = sum(side_bytes(args[0], "B" if args[-1] else "A",
+                               c if args[-1] else r) for args in passes)
+    lib_ms = lib6_ms = None
     if op.vop is VectorOp.COPY_RHS and op.vsc is ScaleOp.MEAN:
+        # forward: A with the mean's values times y; backward (pass B
+        # alone): Aᵀ with the CSC values times g (already divided by the
+        # degree, as FusedMM.backward hands it over)
         mean_vals = (graph.value[:n]
                      / graph.deg.clamp(min=1.0)[graph.row[:n].long()])
         lib = csr(graph.rowptr, graph.col[:n], mean_vals, graph.shape)
         lib_ms = cuda_ms(lambda: torch.sparse.mm(lib, y))
+        lib_t = csr(graph.csc_colptr, graph.csc_col[:n],
+                    graph.csc_value[:n], (c, r))
+        lib6_ms = cuda_ms(lambda: torch.sparse.mm(lib_t, g))
+    plain_iters = dict(iters=2, warmup=1) if k > 64 else dict(iters=5)
     out = [dict(kernel="fused", graph="rmat", case=pname, k=k,
                 max_abs_err=err5, tol=tol5, ref32_err=ref32_err,
                 ms=cuda_ms(lambda: k5.fused(*fwd)),
-                plain_ms=cuda_ms(lambda: k5.fused_plain(*fwd), iters=5),
+                plain_ms=cuda_ms(lambda: k5.fused_plain(*fwd),
+                                 **plain_iters),
                 library_ms=lib_ms,
                 bound=bound_ms(fwd_bytes, fused_ops_per_edge_feature(
                     op, False) * n * k, FP32_FLOPS)),
            dict(kernel="fused_bwd", graph="rmat", case=pname, k=k,
                 passes=len(passes), max_abs_err=err6, tol=tol6,
-                ms=cuda_ms(bwd), plain_ms=cuda_ms(bwd_plain, iters=5),
-                library_ms=None,
+                ms=cuda_ms(bwd), plain_ms=cuda_ms(bwd_plain, **plain_iters),
+                library_ms=lib6_ms,
                 bound=bound_ms(
-                    pass_b + (pass_a if needs_x else 0),
-                    len(passes) * fused_ops_per_edge_feature(op, True)
-                    * n * k, FP32_FLOPS))]
+                    bwd_bytes, len(passes) * fused_ops_per_edge_feature(
+                        op, True) * n * k, FP32_FLOPS))]
     return out
 
 
@@ -636,14 +679,15 @@ def fused_paths(graphs, cases, drive, gen):
         "tdist-force": FusedOp(VectorOp.SUB, ReduceOp.NORM2, ScalarOp.TDIST,
                                ScaleOp.MUL, Reduce.SUM),
         "copy_rhs-mean": FusedOp.spmm("mean")}
-    for pname, op in pipelines.items():
-        for r in check_and_time_fused(pname, op, g, tiled, FUSED_K, gen):
+    for (pname, op), k in itertools.product(pipelines.items(), FUSED_KS):
+        for r in check_and_time_fused(pname, op, g, tiled, k, gen):
             cases.append(r)
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
-            log(f"{r['kernel']:9s} {pname:13s} K={FUSED_K}: {r['ms']:.4f} ms "
+            log(f"{r['kernel']:9s} {pname:13s} K={k}: {r['ms']:.4f} ms "
                 f"(plain {r['plain_ms']:.3f}, library {lib}, bound "
-                f"{r['bound'][0]:.4f} by {r['bound'][1]}), err "
+                f"{r['bound'][0]:.4f} by {r['bound'][1]}, "
+                f"{100 * r['bound'][0] / r['ms']:.1f}% of it), err "
                 f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}"
                 + (f"; the fp32 reference formulation {r['ref32_err']:.3g} "
                    "from the float64 plain version" if "ref32_err" in r

@@ -8,7 +8,7 @@
 // scales like MUL here), each edge e = (i, j) recomputes
 //     v = VOP(x[i], y[j]);  t = ROP(v);  s = SOP(t) * w   (w = val or 1)
 // and applies the chain rule in registers:
-//     a  = <g[i], v>                       (warp shuffle reduction)
+//     a  = <g[i], v>                       (a shuffle reduction)
 //     ŝ  = a * w * SOP'(t)                 (0 for ROP = NOOP: t = 1 is fixed)
 //     ĝv = s * g[i] + ŝ (DOT) or + 2 ŝ v (NORM2)
 //     pass A: grad_x[i] += dVOP/dx * ĝv    walking the CSR (rows of A)
@@ -21,16 +21,24 @@
 // cotangent: fused_mm sends a graph whose values require a gradient to the
 // plain formulation.
 //
-// What bounds it on an H100: HBM bytes.  Pass A reads col and val (8 B per
-// edge), x and g of each row once per segment, and a y row per edge; pass B
-// reads the CSC's col and val, y of each row once per segment, and an x and
-// a g row per edge (from L2 when they fit in its 50 MB).  About ten
-// operations per edge and feature are far below the fp32 peak.  The design
-// is K5's (fused.cu): one warp per <= SEG_EDGES-edge segment of one row,
-// lanes over K <= 256 (NK <= 8 floats a lane), the segment row's operands in
-// registers, per-lane accumulators, split rows added with atomicAdd into
-// the zeroed output.  Masked lanes of a ragged K hold 0 in x, y and g, so
-// they add 0 to both reductions.
+// What bounds it on an H100: HBM bytes are each list's col and val (8 B per
+// edge), the segment lists, the rows read once and the outputs; the
+// gathered rows come from L2 when they fit in its 50 MB: a y row per edge
+// in pass A, an x and a g row per edge in pass B (2.2 GB over both passes
+// at K = 32 on the R-MAT graph of 5.7M edges), so L2 bandwidth and the
+// gathers' latency bound it in practice.  The design is K5's (fused.cu and
+// fused_ops.cuh): a warp per segment of one row, an edge per group of L
+// lanes, the segment row's operands in registers with the VOP decoded
+// against them once, the two reductions (t and a) as interleaved
+// log2(L)-step shuffles, the scalar chain once per group, the column and
+// value words a round ahead, the gathers of 16 edges (pass A) or 8 (pass
+// B, two rows an edge) at K = 32 in flight before their arithmetic, ROP and
+// SOP compiled in, and one store per row of one segment, atomicAdd into the
+// pre-zeroed split rows.  Pass B recomputes t, s, a and ŝ, which pass A
+// had: caching them per edge (8 B, read in CSC order through csc2csr)
+// made the two passes 10% (sigmoid embedding) and 15% (t-distribution)
+// slower at K = 32 (probe_fused.py).  A ragged K arrives padded with zero
+// features (the wrapper), which add 0 to both reductions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,124 +49,114 @@ namespace {
 
 using namespace fused;
 
-constexpr int THREADS = 256;  // 8 warps, one work item each
+struct Args {
+  const int* seg_ptr;
+  const int* seg_row;
+  const int* seg_slot;
+  const int* col;
+  const float* val;
+  const float* x;
+  const float* y;
+  const float* g;
+  float* out;
+  int nseg, k, vop, rop, sop, vsc;
+};
 
-// pass_b = 0: the segments are rows i of A, col[e] = j, and the kernel
-// emits grad_x.  pass_b = 1: the segments are rows j of Aᵀ (the CSC),
+// PASS_B = false: the segments are rows i of A, col[e] = j, and the kernel
+// emits grad_x.  PASS_B = true: the segments are rows j of Aᵀ (the CSC),
 // col[e] = i, and it emits grad_y.
-template <int NK>
-__global__ void __launch_bounds__(THREADS)
-    fused_bwd_kernel(const int* __restrict__ seg_ptr,
-                     const int* __restrict__ seg_row,
-                     const int* __restrict__ seg_slot,
-                     const int* __restrict__ col,
-                     const float* __restrict__ val,
-                     const float* __restrict__ x, const float* __restrict__ y,
-                     const float* __restrict__ g, float* __restrict__ out,
-                     int nseg, int k, int vop, int rop, int sop, int vsc,
-                     int pass_b) {
+template <class C, bool PASS_B>
+__global__ void __launch_bounds__(THREADS) fused_bwd_kernel(const Args a) {
+  constexpr int W = C::W, L = C::L, NV = C::NV, G = 32 / L;
+  constexpr int D = DEPTH<W, PASS_B ? 2 * NV : NV>;  // x and g in pass B
   const int item = (blockIdx.x * THREADS + threadIdx.x) >> 5;
-  if (item >= nseg) return;  // uniform across the warp
-  const int lane = threadIdx.x & 31;
-  const int e0 = seg_ptr[item], e1 = seg_ptr[item + 1], r = seg_row[item];
+  if (item >= a.nseg) return;  // uniform across the warp
+  const int rop = C::ROP == RUNTIME ? a.rop : C::ROP;
+  const int sop = C::SOP == RUNTIME ? a.sop : C::SOP;
+  const int lane = threadIdx.x & 31, q = lane % L, grp = lane / L;
+  const int e0 = a.seg_ptr[item], e1 = a.seg_ptr[item + 1];
+  const int r = a.seg_row[item], k = a.k;
+  const VopSide vs(a.vop, PASS_B);
+  const bool use_w = a.vsc != VSC_NONE;
+  const size_t own = static_cast<size_t>(r) * k;
 
-  // the segment row's operands: (x, g) in pass A, y in pass B
-  float own_a[NK], own_g[NK], acc[NK];
+  // the VOP's coefficients against the own row (x[i] in pass A, y[j] in
+  // pass B), g[i] (pass A), the sum
+  Row<W, L, NV> cA, cB, g_own, acc;
+  cA.load((PASS_B ? a.y : a.x) + own, q, k);
 #pragma unroll
-  for (int t = 0; t < NK; ++t) {
-    const int f = lane + 32 * t;
-    const size_t o = static_cast<size_t>(r) * k + f;
-    own_a[t] = f < k ? __ldg((pass_b ? y : x) + o) : 0.f;
-    own_g[t] = !pass_b && f < k ? __ldg(g + o) : 0.f;
-    acc[t] = 0.f;
-  }
+  for (int t = 0; t < NV; ++t)
+#pragma unroll
+    for (int w = 0; w < W; ++w) vs.coef(cA.v[t].f[w], cA.v[t].f[w],
+                                        cB.v[t].f[w]);
+  if (!PASS_B) g_own.load(a.g + own, q, k);
+  acc.zero();
+  const float s_one = sop_apply(sop, 1.f);  // the SOP of ROP = NOOP's t
 
-  for (int eb = e0; eb < e1; eb += 32) {
-    int c = 0;
-    float w = 0.f;
-    if (eb + lane < e1) {
-      c = col[eb + lane];
-      w = val[eb + lane];
+  // the last edge word a fetch reads: e1 - 1, or the arrays' first for an
+  // empty segment (they hold at least the graph's sentinel pad edge)
+  const int last = max(e1 - 1, 0);
+  EdgeWords<G, D> nxt;
+  nxt.fetch(a.col, a.val, use_w, e0, last, grp);
+  for (int b = e0; b < e1; b += G * D) {
+    const EdgeWords<G, D> cur = nxt;
+    // the gathered rows: y[j] (pass A), or x[i] and g[i] (pass B)
+    Row<W, L, NV> ov[D], gv[PASS_B ? D : 1];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const size_t oc = static_cast<size_t>(cur.c[d]) * k;
+      if (vs.need_other)
+        ov[d].load((PASS_B ? a.x : a.y) + oc, q, k);
+      else
+        ov[d].zero();
+      if constexpr (PASS_B) gv[d].load(a.g + oc, q, k);
     }
-    const int m = min(32, e1 - eb);
-#pragma unroll 2
-    for (int jj = 0; jj < m; ++jj) {
-      const int cj = __shfl_sync(FULL, c, jj);
-      const float wj = vsc == VSC_NONE ? 1.f : __shfl_sync(FULL, w, jj);
-      const size_t oc = static_cast<size_t>(cj) * k;
-      float xv[NK], yv[NK], gv[NK], v[NK];
+    if (b + G * D < e1) nxt.fetch(a.col, a.val, use_w, b + G * D, last, grp);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const Row<W, L, NV>& gi = PASS_B ? gv[PASS_B ? d : 0] : g_own;
+      Row<W, L, NV> v;
       float pt = 0.f, pa = 0.f;
 #pragma unroll
-      for (int t = 0; t < NK; ++t) {
-        const int f = lane + 32 * t;
-        if (pass_b) {
-          xv[t] = f < k ? __ldg(x + oc + f) : 0.f;
-          gv[t] = f < k ? __ldg(g + oc + f) : 0.f;
-          yv[t] = own_a[t];
-        } else {
-          xv[t] = own_a[t];
-          gv[t] = own_g[t];
-          yv[t] = f < k ? __ldg(y + oc + f) : 0.f;
+      for (int t = 0; t < NV; ++t)
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          v.v[t].f[w] = vs.apply<C::MM>(cA.v[t].f[w], cB.v[t].f[w],
+                                        ov[d].v[t].f[w]);
+          if (rop != NOOP) {
+            pt += rop_part(rop, v.v[t].f[w]);
+            pa = fmaf(gi.v[t].f[w], v.v[t].f[w], pa);
+          }
         }
-        v[t] = vop_apply(vop, xv[t], yv[t]);
-        pt += rop_part(rop, v[t]);
-        pa = fmaf(gv[t], v[t], pa);
-      }
-      float s = 1.f, shat = 0.f;
+      // the edge's scalars: sw = SOP(t) * w and shat = a * w * SOP'(t)
+      float sw = s_one * cur.w[d], shat = 0.f;
       if (rop != NOOP) {
-        const float tt = warp_sum(pt);
-        const float a = warp_sum(pa);
-        s = tt;
-        float ds = 1.f;
-        if (sop != SOP_NONE) {
-          s = sop_apply(sop, tt);
-          ds = sop_grad(sop, s);
+#pragma unroll
+        for (int o = L / 2; o > 0; o >>= 1) {
+          pt += __shfl_xor_sync(FULL, pt, o);
+          pa += __shfl_xor_sync(FULL, pa, o);
         }
-        shat = a * wj * ds;
-      } else if (sop != SOP_NONE) {
-        s = sop_apply(sop, 1.f);
+        const float s = sop_apply(sop, pt);
+        sw = s * cur.w[d];
+        shat = pa * cur.w[d] * sop_grad(sop, s);
       }
-      s *= wj;
+      if (b + d * G + grp < e1) {
 #pragma unroll
-      for (int t = 0; t < NK; ++t) {
-        float d = s * gv[t];
-        if (rop == DOT) d += shat;
-        if (rop == NORM2) d += 2.f * shat * v[t];
-        const float dv = pass_b ? vop_dy(vop, xv[t], yv[t])
-                                : vop_dx(vop, xv[t], yv[t]);
-        acc[t] = fmaf(dv, d, acc[t]);
+        for (int t = 0; t < NV; ++t)
+#pragma unroll
+          for (int w = 0; w < W; ++w) {
+            float dd = sw * gi.v[t].f[w];
+            if (rop == DOT) dd += shat;
+            if (rop == NORM2) dd = fmaf(2.f * shat, v.v[t].f[w], dd);
+            acc.v[t].f[w] = fmaf(
+                vs.d_own<C::MM>(cA.v[t].f[w], ov[d].v[t].f[w]), dd,
+                acc.v[t].f[w]);
+          }
       }
     }
   }
 
-  float* o = out + static_cast<size_t>(r) * k;
-  const bool whole = seg_slot[item] < 0;
-#pragma unroll
-  for (int t = 0; t < NK; ++t) {
-    const int f = lane + 32 * t;
-    if (f < k) {
-      if (whole)
-        o[f] = acc[t];
-      else
-        atomicAdd(o + f, acc[t]);
-    }
-  }
-}
-
-template <int NK>
-int launch(const void* seg_ptr, const void* seg_row, const void* seg_slot,
-           const void* col, const void* val, const void* x, const void* y,
-           const void* g, void* out, int nseg, int k, int vop, int rop,
-           int sop, int vsc, int pass_b, cudaStream_t stream) {
-  const int per_block = THREADS / 32;
-  fused_bwd_kernel<NK><<<(nseg + per_block - 1) / per_block, THREADS, 0,
-                         stream>>>(
-      static_cast<const int*>(seg_ptr), static_cast<const int*>(seg_row),
-      static_cast<const int*>(seg_slot), static_cast<const int*>(col),
-      static_cast<const float*>(val), static_cast<const float*>(x),
-      static_cast<const float*>(y), static_cast<const float*>(g),
-      static_cast<float*>(out), nseg, k, vop, rop, sop, vsc, pass_b);
-  return static_cast<int>(cudaGetLastError());
+  store_row(acc, a.out + own, lane, k, a.seg_slot[item] < 0, 1.f);
 }
 
 }  // namespace
@@ -166,27 +164,41 @@ int launch(const void* seg_ptr, const void* seg_row, const void* seg_slot,
 // One backward pass of the sum-accumulated pipeline (codes of
 // fused_ops.cuh).  Pass A (pass_b = 0): the plan and (col, val) are the
 // CSR's, out is grad_x (num_rows, k).  Pass B (pass_b = 1): the plan and
-// (col, val) are the CSC's, out is grad_y (num_cols, k).  x (num_rows, k),
-// y (num_cols, k) and g (num_rows, k) fp32, k <= 256; out zeroed by the
-// caller; on CUDA device `device` and stream `stream`.  Returns the CUDA
-// error of the launch (0 = launched).
+// (col, val) are the CSC's, out is grad_y (num_cols, k).  (col, val) are at
+// least one edge long; x (num_rows, k), y (num_cols, k) and g (num_rows,
+// k) fp32, k <= 256 and k % 4 == 0, on CUDA device `device` and stream
+// `stream`.  out need not be zeroed: the nsplit rows split_rows are zeroed
+// first, one more launch.  Returns the CUDA error of the launches (0 =
+// launched).
 extern "C" int fused_bwd_launch(const void* seg_ptr, const void* seg_row,
-                                const void* seg_slot, const void* col,
-                                const void* val, const void* x,
-                                const void* y, const void* g, void* out,
-                                int nseg, int k, int vop, int rop, int sop,
-                                int vsc, int pass_b, int device,
-                                void* stream) {
+                                const void* seg_slot, const void* split_rows,
+                                const void* col, const void* val,
+                                const void* x, const void* y, const void* g,
+                                void* out, int nseg, int nsplit, int k,
+                                int vop, int rop, int sop, int vsc,
+                                int pass_b, int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (k > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (k % 4 != 0 || k > 256) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FUSED_BWD_LAUNCH(NK)                                              \
-  return launch<NK>(seg_ptr, seg_row, seg_slot, col, val, x, y, g, out,  \
-                    nseg, k, vop, rop, sop, vsc, pass_b, s)
-  if (k <= 32) FUSED_BWD_LAUNCH(1);
-  if (k <= 64) FUSED_BWD_LAUNCH(2);
-  if (k <= 128) FUSED_BWD_LAUNCH(4);
-  FUSED_BWD_LAUNCH(8);
-#undef FUSED_BWD_LAUNCH
+  if (const int e = zero_rows(split_rows, out, nsplit, k, s)) return e;
+  if (nseg == 0) return 0;
+  const Args a{static_cast<const int*>(seg_ptr),
+               static_cast<const int*>(seg_row),
+               static_cast<const int*>(seg_slot),
+               static_cast<const int*>(col),
+               static_cast<const float*>(val),
+               static_cast<const float*>(x),
+               static_cast<const float*>(y),
+               static_cast<const float*>(g),
+               static_cast<float*>(out),
+               nseg, k, vop, rop, sop, vsc};
+  const int blocks = (nseg + THREADS / 32 - 1) / (THREADS / 32);
+  return dispatch(k, vop, rop, sop, [&](auto cfg) {
+    if (pass_b)
+      fused_bwd_kernel<decltype(cfg), true><<<blocks, THREADS, 0, s>>>(a);
+    else
+      fused_bwd_kernel<decltype(cfg), false><<<blocks, THREADS, 0, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -46,10 +46,13 @@ def stage_codes(op: FusedOp) -> tuple[int, int, int, int]:
 
 def check_operands(plan: MinMaxPlan, col: torch.Tensor,
                    value: torch.Tensor, named: dict) -> None:
-    """Shapes of the edge list, and dtype, layout and device of every
-    operand; ``named`` maps a name to (tensor, leading dim); all share K."""
-    if col.dim() != 1 or col.shape != value.shape or col.shape[0] < plan.nnz:
-        raise ValueError(f"col and value must be one (>= {plan.nnz},) edge "
+    """Shapes of the edge list (at least one edge long: the kernels read
+    edge 0's words for an empty segment), and dtype, layout and device of
+    every operand; ``named`` maps a name to (tensor, leading dim); all
+    share K."""
+    need = max(plan.nnz, 1)
+    if col.dim() != 1 or col.shape != value.shape or col.shape[0] < need:
+        raise ValueError(f"col and value must be one (>= {need},) edge "
                          f"list, got {tuple(col.shape)} and "
                          f"{tuple(value.shape)}")
     k = next(iter(named.values()))[0].shape[-1]
@@ -71,6 +74,20 @@ def check_operands(plan: MinMaxPlan, col: torch.Tensor,
                              f"{plan.seg_ptr.device}")
 
 
+def pad4(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (n, K) with zero columns up to K rounded up to a multiple of 4
+    (``t`` itself where K is one): the kernels load every row as float4s.
+    A zero feature adds 0 to t and to <g, v>, so the first K columns of
+    the kernels' result are the unpadded one; :func:`unpad` keeps them."""
+    pad = -t.shape[1] % 4
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
+
+
+def unpad(out: torch.Tensor, k: int) -> torch.Tensor:
+    """The first ``k`` columns of a kernel's padded output, contiguous."""
+    return out if out.shape[1] == k else out[:, :k].contiguous()
+
+
 def fused_plain(plan: MinMaxPlan, col: torch.Tensor, value: torch.Tensor,
                 deg: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                 op: FusedOp) -> torch.Tensor:
@@ -89,7 +106,7 @@ def fused_plain(plan: MinMaxPlan, col: torch.Tensor, value: torch.Tensor,
 @functools.cache
 def _lib():
     fn = build.load("fused").fused_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -113,16 +130,19 @@ def fused(plan: MinMaxPlan, col: torch.Tensor, value: torch.Tensor,
         return fused_plain(plan, col, value, deg, x, y, op)
     if x.device.type != "cuda":
         raise ValueError(f"fused runs on cuda or cpu, not {x.device}")
-    out = torch.zeros(plan.num_rows, x.shape[1], dtype=torch.float32,
+    k = x.shape[1]
+    x, y = pad4(x), pad4(y)
+    out = torch.empty(plan.num_rows, x.shape[1], dtype=torch.float32,
                       device=x.device)
-    if plan.num_rows == 0 or x.shape[1] == 0:
-        return out
+    if out.numel() == 0:
+        return out[:, :k]
     err = _lib()(plan.seg_ptr.data_ptr(), plan.seg_row.data_ptr(),
-                 plan.seg_slot.data_ptr(), col.data_ptr(), value.data_ptr(),
-                 deg.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                 plan.nseg, x.shape[1], *codes, x.device.index,
+                 plan.seg_slot.data_ptr(), plan.split_rows.data_ptr(),
+                 col.data_ptr(), value.data_ptr(), deg.data_ptr(),
+                 x.data_ptr(), y.data_ptr(), out.data_ptr(), plan.nseg,
+                 plan.nsplit, x.shape[1], *codes, x.device.index,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return out
+    return unpad(out, k)

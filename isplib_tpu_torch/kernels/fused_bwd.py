@@ -33,7 +33,7 @@ from ..ops.reference import _FUSED_EDGE_FEATURE_BYTES, _chunks
 from ..ops.semiring import FusedOp, ReduceOp, ScaleOp, VectorOp
 from ..sparse.tiling_v4mm import MinMaxPlan
 from . import build
-from .fused import check_operands, stage_codes
+from .fused import check_operands, pad4, stage_codes, unpad
 
 __all__ = ["fused_bwd", "fused_bwd_plain", "LAUNCHES"]
 
@@ -105,7 +105,7 @@ def fused_bwd_plain(plan: MinMaxPlan, col: torch.Tensor,
 @functools.cache
 def _lib():
     fn = build.load("fused_bwd").fused_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -131,16 +131,20 @@ def fused_bwd(plan: MinMaxPlan, col: torch.Tensor, value: torch.Tensor,
         return fused_bwd_plain(plan, col, value, x, y, g, op, pass_b)
     if x.device.type != "cuda":
         raise ValueError(f"fused_bwd runs on cuda or cpu, not {x.device}")
-    out = torch.zeros(plan.num_rows, x.shape[1], dtype=torch.float32,
+    k = x.shape[1]
+    x, y, g = pad4(x), pad4(y), pad4(g)
+    out = torch.empty(plan.num_rows, x.shape[1], dtype=torch.float32,
                       device=x.device)
-    if plan.num_rows == 0 or x.shape[1] == 0:
-        return out
+    if out.numel() == 0:
+        return out[:, :k]
     err = _lib()(plan.seg_ptr.data_ptr(), plan.seg_row.data_ptr(),
-                 plan.seg_slot.data_ptr(), col.data_ptr(), value.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), g.data_ptr(), out.data_ptr(),
-                 plan.nseg, x.shape[1], *codes, int(pass_b), x.device.index,
+                 plan.seg_slot.data_ptr(), plan.split_rows.data_ptr(),
+                 col.data_ptr(), value.data_ptr(), x.data_ptr(),
+                 y.data_ptr(), g.data_ptr(), out.data_ptr(), plan.nseg,
+                 plan.nsplit, x.shape[1], *codes, int(pass_b),
+                 x.device.index,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_bwd launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return out
+    return unpad(out, k)

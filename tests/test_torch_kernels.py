@@ -220,14 +220,18 @@ def test_minmax_spmm_on_cuda_runs_the_kernel(cuda, reduce):
     assert torch.equal(got, want)
 
 
-def hub_rows_and_cols(device, num_rows=1200, num_cols=1100, nnz=20000):
-    """Hub rows (0, 1) and hub columns (0, 1) of many segments each, so
-    both work lists have split rows, and empty rows (the last 50)."""
+def hub_rows_and_cols(device, num_rows=1200, num_cols=1100, nnz=20000,
+                      edgeless_first=False):
+    """A hub row and a hub column (among 0, 1) of many segments each, so
+    both work lists have split rows, and empty rows (the last 50); with
+    ``edgeless_first`` row 0 and column 0 have no edges either (the hubs
+    are among 1, 2)."""
     rng = np.random.default_rng(2)
-    row = rng.integers(0, num_rows - 50, nnz)
-    col = rng.integers(0, num_cols, nnz)
-    row[rng.random(nnz) < 0.2] = rng.integers(0, 2)
-    col[rng.random(nnz) < 0.2] = rng.integers(0, 2)
+    lo = int(edgeless_first)
+    row = rng.integers(lo, num_rows - 50, nnz)
+    col = rng.integers(lo, num_cols, nnz)
+    row[rng.random(nnz) < 0.2] = rng.integers(lo, lo + 2)
+    col[rng.random(nnz) < 0.2] = rng.integers(lo, lo + 2)
     val = rng.normal(size=nnz).astype(np.float32)
     return pt.from_edge_index(np.stack([col, row]), num_nodes=num_rows,
                               num_src_nodes=num_cols, edge_value=val,
@@ -264,20 +268,16 @@ FUSED_OPS = [
     FusedOp.sddmm_dot(),
     FusedOp(VectorOp.MAX, ReduceOp.NORM2, ScalarOp.SIGMOID, ScaleOp.NONE),
     FusedOp(VectorOp.COPY_LHS, ReduceOp.NOOP, ScalarOp.TDIST, ScaleOp.MEAN),
+    FusedOp(VectorOp.MIN, ReduceOp.DOT, None, ScaleOp.MUL),
+    FusedOp(VectorOp.ADD, ReduceOp.NORM2, None, ScaleOp.NONE),
 ]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("k", [8, 32, 41, 256])
-@pytest.mark.parametrize("op", FUSED_OPS, ids=lambda o: o.vop.value)
-def test_fused_kernels_match_plain_versions(cuda, op, k):
-    """K5 forward and both K6 passes against their plain versions."""
-    g = hub_rows_and_cols(cuda)
+def check_fused_kernels(g, x, y, gr, op):
+    """K5 forward and both K6 passes on ``g`` against their plain
+    versions, each launched once."""
     tiled = build_tiling(g)
     assert tiled.fwd_mm.nsplit > 0 and tiled.bwd_mm.nsplit > 0
-    x = 0.5 * torch.randn(g.num_rows, k, device=cuda)
-    y = 0.5 * torch.randn(g.num_cols, k, device=cuda)
-    gr = torch.randn(g.num_rows, k, device=cuda)
     before = (fused.LAUNCHES, fused_bwd.LAUNCHES)
     fwd = (tiled.fwd_mm, g.col, g.value, g.deg, x, y, op)
     assert_near_plain(fused.fused(*fwd), fused.fused_plain(*fwd))
@@ -292,10 +292,95 @@ def test_fused_kernels_match_plain_versions(cuda, op, k):
                                                     before[1] + 2)
 
 
+@pytest.mark.parametrize("op", FUSED_OPS, ids=lambda o: o.vop.value)
+def test_fused_zero_padding_changes_nothing(op):
+    """The wrappers pad a ragged K with zero features up to a multiple of 4
+    for the kernels' float4 rows and keep the first K columns: the plain
+    versions on padded operands give the unpadded result there (a zero
+    feature adds 0 to t and to <g, v>; the padded columns are dropped)."""
+    g = hub_rows_and_cols("cpu")
+    tiled = build_tiling(g)
+    rng = np.random.default_rng(4)
+    x, y, gr = (torch.from_numpy(rng.normal(size=(n, 5)).astype(np.float32))
+                for n in (g.num_rows, g.num_cols, g.num_rows))
+    xp = fused.pad4(x)
+    assert xp.shape == (g.num_rows, 8) and fused.pad4(xp) is xp
+    runs = [lambda a, b, c: fused.fused_plain(tiled.fwd_mm, g.col, g.value,
+                                              g.deg, a, b, op)]
+    for plan, col, val, pass_b in (
+            (tiled.fwd_mm, g.col, g.value, False),
+            (tiled.bwd_mm, g.csc_col, g.csc_value, True)):
+        runs.append(lambda a, b, c, plan=plan, col=col, val=val,
+                    pass_b=pass_b: fused_bwd.fused_bwd_plain(
+                        plan, col, val, a, b, c, op, pass_b))
+    for run in runs:
+        want = run(x, y, gr)
+        got = run(fused.pad4(x), fused.pad4(y), fused.pad4(gr))
+        torch.testing.assert_close(fused.unpad(got, 5), want, rtol=1e-6,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
 @pytest.mark.gpu
-def test_fused_mm_on_cuda_runs_the_kernels(cuda):
-    """A CUDA TiledGraph launches K5 forward and K6 backward and agrees
-    with the plain formulation on the CSRGraph."""
+@pytest.mark.parametrize("k", [4, 8, 32, 41, 64, 128, 256])
+@pytest.mark.parametrize("op", FUSED_OPS, ids=lambda o: o.vop.value)
+def test_fused_kernels_match_plain_versions(cuda, op, k):
+    """K5 forward and both K6 passes against their plain versions at
+    every lane-group width, with hub rows and columns split across
+    segments and rows without edges."""
+    g = hub_rows_and_cols(cuda)
+    assert int((g.deg == 0).sum()) > 0
+    check_fused_kernels(g, 0.5 * torch.randn(g.num_rows, k, device=cuda),
+                        0.5 * torch.randn(g.num_cols, k, device=cuda),
+                        torch.randn(g.num_rows, k, device=cuda), op)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [4, 32, 41, 256])
+@pytest.mark.parametrize("op", FUSED_OPS, ids=lambda o: o.vop.value)
+def test_fused_kernels_with_edgeless_first_row_and_column(cuda, op, k):
+    """Row 0 and column 0 without edges: the first segment of both work
+    lists is empty and starts at edge 0 (the kernels read no edge word for
+    it, none lies before it), and its row is stored as zeros."""
+    g = hub_rows_and_cols(cuda, edgeless_first=True)
+    tiled = build_tiling(g)
+    for plan in (tiled.fwd_mm, tiled.bwd_mm):
+        assert plan.seg_ptr[:2].tolist() == [0, 0]
+        assert int(plan.seg_row[0]) == 0
+    check_fused_kernels(g, 0.5 * torch.randn(g.num_rows, k, device=cuda),
+                        0.5 * torch.randn(g.num_cols, k, device=cuda),
+                        torch.randn(g.num_rows, k, device=cuda), op)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [32, 41])
+@pytest.mark.parametrize("vop", [VectorOp.MAX, VectorOp.MIN, VectorOp.MUL])
+def test_fused_kernels_zero_values_and_ties(cuda, vop, k):
+    """Zero-valued edges count under ScaleOp.NONE, and VOP max/min ties
+    (operands on a grid of quarters) split the cotangent 0.5 / 0.5."""
+    g = hub_rows_and_cols(cuda)
+    n = g.nnz
+    val = g.value.clone()
+    val[:n][torch.rand(n, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(3)) < 0.3] = 0.0
+    g = g.with_value(val)
+    assert int((g.value[:n] == 0).sum()) > 0
+
+    def grid(rows):
+        return 0.25 * torch.randint(-2, 3, (rows, k), device=cuda).float()
+
+    x, y = grid(g.num_rows), grid(g.num_cols)
+    for op in (FusedOp(vop, ReduceOp.NORM2, ScalarOp.SIGMOID, ScaleOp.NONE),
+               FusedOp(vop, ReduceOp.NOOP, None, ScaleOp.NONE)):
+        check_fused_kernels(g, x, y, torch.randn(g.num_rows, k, device=cuda),
+                            op)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_grad", [True, False])
+def test_fused_mm_on_cuda_runs_the_kernels(cuda, x_grad):
+    """A CUDA TiledGraph launches K5 forward and K6 backward (pass B
+    alone when x needs no gradient) and agrees with the plain formulation
+    on the CSRGraph."""
     g = hub_rows_and_cols(cuda)
     tiled = build_tiling(g)
     op = FUSED_OPS[1]
@@ -305,17 +390,20 @@ def test_fused_mm_on_cuda_runs_the_kernels(cuda):
                         generator=torch.Generator(cuda).manual_seed(0))
         y = torch.randn(g.num_cols, 32, device=cuda,
                         generator=torch.Generator(cuda).manual_seed(1))
-        x.requires_grad_(True)
+        x.requires_grad_(x_grad)
         y.requires_grad_(True)
         before = (fused.LAUNCHES, fused_bwd.LAUNCHES)
         out = pt.fused_mm(graph, x, y, op)
         (out ** 2).sum().backward()
         ran = (fused.LAUNCHES - before[0], fused_bwd.LAUNCHES - before[1])
-        assert ran == ((1, 2) if graph is tiled else (0, 0))
+        assert ran == ((1, 1 + x_grad) if graph is tiled else (0, 0))
         outs.append(out.detach())
         grads += [x.grad, y.grad]
     assert_near_plain(outs[0], outs[1])
-    assert_near_plain(grads[0], grads[2])
+    if x_grad:
+        assert_near_plain(grads[0], grads[2])
+    else:
+        assert grads[0] is None and grads[2] is None
     assert_near_plain(grads[1], grads[3])
 
 
