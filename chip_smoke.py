@@ -22,12 +22,13 @@
    (``torch.sparse.mm`` on a CSR tensor, the yardstick ``library_ms``) with
    CUDA events, beside the bound max(bytes / 3.35 TB/s, operations / peak)
    of that call's inputs.
-4. Max/min kernel (K3), on both graphs, max and min, at K = 32, 41 and 602:
-   out bit for bit and arg exactly equal to the plain version (exact fp32),
-   and equal as numbers to the reference path; times the kernel, its plain
-   version and ``scatter_reduce_(..., "amax"|"amin", include_self=False)``
-   over precomputed (E, K) messages (values only, no winning ids: no
-   PyTorch call returns them), beside the bound.
+4. Max/min kernel (K3), on both graphs, max and min, at K = 32, 41 and 602,
+   logged with the max/min walk its schedule takes (edges, items, split
+   rows): out bit for bit and arg exactly equal to the plain version
+   (exact fp32), and equal as numbers to the reference path; times the
+   kernel, its plain version and ``scatter_reduce_(..., "amax"|"amin",
+   include_self=False)`` over precomputed (E, K) messages (values only, no
+   winning ids: no PyTorch call returns them), beside the bound.
 5. The paths, each driven with every kernel's launch count set to 0 just
    before it and read just after; the paths run on the plans that steps
    3-4 checked:
@@ -76,11 +77,13 @@
    logged with rows per shard, halo, halo fraction, build seconds and every
    plan's bytes and fill.  K8 on shard 0's local and halo forward plans
    at K = 32 and 602 and on its two transpose plans at K = 32 and 41
-   against its plain version (1e-4·max|plain|: fp32, atomics sum in a
-   run-to-run order) and K7 on both halves, max and min, at K = 32 and
-   602, bit for bit; each timed beside ``torch.sparse.mm`` of the same
-   edges (K8) or ``scatter_reduce_`` values only (K7) and the bound (the
-   real edges' planes, the x tile of every non-empty cell, the outputs).
+   against its plain version evaluated in float64 (1e-4·max|plain|: the
+   kernel and the fp32 plain version, whose error is logged beside it,
+   both sum in a run-to-run order) and K7 on both halves, max and min, at K = 32, 41
+   and 602, bit for bit, logged with its walk; each timed beside
+   ``torch.sparse.mm`` of the same edges (K8) or ``scatter_reduce_``
+   values only (K7) and the bound (the real edges' planes, the x tile of
+   every non-empty cell, the outputs).
    Then the paths, 30 epochs each: GCN on the version-5 route (K1/K2, both
    graphs) and on the version-2 route (K8), GraphSAGE-max (K7); the loss
    falls, train accuracy above 0.7, and the trained loss on the sharded
@@ -104,7 +107,7 @@
    density-rep's v3 plans (threshold 64, g = 32; reddit-sim's residual is
    empty there) and K10 on both graphs' v1 plans, forward and transposed at
    K = 32, 41 and 602, each against its plain version at
-   1e-4·max|plain| and timed beside ``torch.sparse.mm`` of the same edges
+   1e-4·max|plain| (K10 as K8: evaluated in float64) and timed beside ``torch.sparse.mm`` of the same edges
    and the bound (K9's operations at the bf16 tensor-core rate); then the
    same for K8 on density-rep's full version-2 plan (256/512/512) and on
    its version-3 residual; then the split paths on density-rep's plans,
@@ -382,7 +385,7 @@ def check_and_time_minmax(name, graph, tiled, reduce, k, gen):
     wide = k > 64
     return dict(
         kernel="spmm_minmax_v4", graph=name, reduce=reduce, k=k,
-        max_abs_err=err, nsplit=plan.nsplit, nseg=plan.nseg,
+        max_abs_err=err, walk=walk_line(plan.sched, n),
         ms=cuda_ms(kernel, iters=10 if wide else 30),
         plain_ms=cuda_ms(plain, iters=2 if wide else 5, warmup=1),
         library_ms=lib_ms,
@@ -390,6 +393,12 @@ def check_and_time_minmax(name, graph, tiled, reduce, k, gen):
             (graph.num_rows + 1) * 4 + n * 8 + (2 * plan.nseg + 1) * 4
             + used_cols * k * 4 + graph.num_rows * k * 8,
             2.0 * n * k, FP32_FLOPS))
+
+
+def walk_line(s, edges: int) -> str:
+    """The max/min walk a schedule takes (K3, K7)."""
+    return (f"{edges} edges in {s.nseg} items of <= {s.item_edges}; "
+            f"{s.nsplit} split rows")
 
 
 def check_near_plain(label, got, want):
@@ -858,14 +867,18 @@ def v2_bound(plan, k: int, real_edges: int, out_bytes_per: int):
 
 def check_and_time_v2(name, case, plan, k, gen):
     """K8 on one v2 plan at K (a shard plan, a full version-2 plan or a
-    version-3 residual): against its plain version (fp32, sum order only:
-    1e-4·max|plain|) and timed beside ``torch.sparse.mm`` of the same edges
-    and the bound."""
+    version-3 residual): against its plain version evaluated in float64
+    (1e-4·max|plain|; the fp32 plain version's own error against it is
+    logged: its ``index_add`` sums in a run-to-run order too) and timed
+    beside ``torch.sparse.mm`` of the same edges and the bound."""
     from isplib_tpu_torch.kernels import spmm_v2 as k8
 
     x = torch.randn(plan.num_cols, k, device=gen.device, generator=gen)
+    want = k8.spmm_v2_plain(plan, x.double())
     err, tol = check_near_plain(f"spmm_v2 {name} {case} K={k}",
-                                k8.spmm_v2(plan, x), k8.spmm_v2_plain(plan, x))
+                                k8.spmm_v2(plan, x), want)
+    plain_err = float((k8.spmm_v2_plain(plan, x) - want).abs().max())
+    del want
     s = plan.slots()
     keep = s["val"] != 0
     lib = torch.sparse_coo_tensor(
@@ -875,7 +888,8 @@ def check_and_time_v2(name, case, plan, k, gen):
     del s, keep
     wide = k > 64
     return dict(kernel="spmm_v2", graph=name, case=case, k=k,
-                max_abs_err=err, tol=tol, fill=plan.fill, nc=plan.nc,
+                max_abs_err=err, tol=tol, plain_err=plain_err,
+                fill=plan.fill, nc=plan.nc,
                 edges=real, nseg=plan.sched.nseg,
                 ms=cuda_ms(lambda: k8.spmm_v2(plan, x)),
                 plain_ms=cuda_ms(lambda: k8.spmm_v2_plain(plan, x),
@@ -924,7 +938,7 @@ def check_and_time_v2_minmax(name, case, plan, reduce, k, gen):
     wide = k > 64
     return dict(kernel="spmm_minmax", graph=name, case=case, reduce=reduce,
                 k=k, max_abs_err=err, fill=plan.fill, nc=plan.nc,
-                edges=real,
+                edges=real, walk=walk_line(plan.mm_sched, real),
                 ms=cuda_ms(kernel, iters=10 if wide else 30),
                 plain_ms=cuda_ms(plain, iters=2 if wide else 5, warmup=1),
                 library_ms=lib_ms, bound=v2_bound(plan, k, real, 8))
@@ -971,12 +985,13 @@ def sharded_paths(graphs, cases, drive, train, check, unsharded, gen):
             log(f"spmm_v2 reddit-sim {case} K={k}: {r['ms']:.4f} ms (plain "
                 f"{r['plain_ms']:.3f}, library {r['library_ms']:.4f}, bound "
                 f"{r['bound'][0]:.4f} by {r['bound'][1]}), err "
-                f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}; {r['edges']} "
-                f"edges in {r['nc']} chunks, fill {r['fill']:.3f}")
+                f"{r['max_abs_err']:.3g} <= {r['tol']:.3g} (fp32 plain "
+                f"{r['plain_err']:.3g}); {r['edges']} edges in {r['nc']} "
+                f"chunks, fill {r['fill']:.3f}")
     for case, plan in (("shard 0 loc", sg5.plans_mm[0][0]),
                        ("shard 0 halo", sg5.plans_mm[0][1])):
         for reduce in ("max", "min"):
-            for k in (32, K_WIDE):
+            for k in MM_KS:
                 r = check_and_time_v2_minmax("reddit-sim", case, plan,
                                              reduce, k, gen)
                 cases.append(r)
@@ -985,7 +1000,7 @@ def sharded_paths(graphs, cases, drive, train, check, unsharded, gen):
                     f"values-only {r['library_ms']:.4f}, bound "
                     f"{r['bound'][0]:.4f} by {r['bound'][1]}); bit-exact; "
                     f"{r['edges']} edges in {r['nc']} chunks, fill "
-                    f"{r['fill']:.3f}")
+                    f"{r['fill']:.3f}; {r['walk']}")
 
     # ---- the sharded paths -------------------------------------------------
     def gcn():
@@ -1171,23 +1186,27 @@ def check_and_time_v3(name, direction, plan, graph, k, gen):
 
 
 def check_and_time_v1(name, direction, plan, graph, k, gen):
-    """K10 on one plan at K: against its plain version (fp32, sum order
-    only), timed beside ``torch.sparse.mm`` of the same edges and the bound
-    (12 B a real edge, the chunk tables, the x rows read, the output)."""
+    """K10 on one plan at K: against its plain version evaluated in
+    float64 (as K8's), timed beside ``torch.sparse.mm`` of the same edges
+    and the bound (12 B a real edge, the chunk tables, the x rows read, the
+    output)."""
     from isplib_tpu_torch.kernels import spmm_rowblock as k10
     from isplib_tpu_torch.sparse.tiling import SEG_SLOTS
 
     x = torch.randn(plan.num_cols, k, device=gen.device, generator=gen)
+    want = k10.spmm_rowblock_plain(plan, x.double())
     err, tol = check_near_plain(f"spmm_rowblock {name} {direction} K={k}",
-                                k10.spmm_rowblock(plan, x),
-                                k10.spmm_rowblock_plain(plan, x))
+                                k10.spmm_rowblock(plan, x), want)
+    plain_err = float((k10.spmm_rowblock_plain(plan, x) - want).abs().max())
+    del want
     n = graph.nnz
     lib = csr(graph.rowptr, graph.col[:n], graph.value[:n], graph.shape)
     wide = k > 64
     s = plan.sched
     per_row = s.row_ptr.diff()
     return dict(kernel="spmm_rowblock", graph=name, direction=direction, k=k,
-                max_abs_err=err, tol=tol, nc=plan.nc, fill=plan.fill,
+                max_abs_err=err, tol=tol, plain_err=plain_err, nc=plan.nc,
+                fill=plan.fill,
                 nseg=s.nseg, split_rows=int((per_row > SEG_SLOTS).sum()),
                 ms=cuda_ms(lambda: k10.spmm_rowblock(plan, x)),
                 plain_ms=cuda_ms(lambda: k10.spmm_rowblock_plain(plan, x),
@@ -1322,7 +1341,8 @@ def tuner_paths(graphs, cases, drive, train, check, gen):
                     f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library "
                     f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
                     f"{r['bound'][1]}), err {r['max_abs_err']:.3g} <= "
-                    f"{r['tol']:.3g}; {r['nc']} chunks, fill {r['fill']:.3f}, "
+                    f"{r['tol']:.3g} (fp32 plain {r['plain_err']:.3g}); "
+                    f"{r['nc']} chunks, fill {r['fill']:.3f}, "
                     f"{r['nseg']} items, {r['split_rows']} split rows")
 
     # ---- K8 on density-rep's full plans: the version-2 plan (256/512/512)
@@ -1340,8 +1360,9 @@ def tuner_paths(graphs, cases, drive, train, check, gen):
                 f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library "
                 f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
                 f"{r['bound'][1]}), err {r['max_abs_err']:.3g} <= "
-                f"{r['tol']:.3g}; {r['edges']} edges in {r['nc']} chunks, "
-                f"fill {r['fill']:.3f}, {r['nseg']} items")
+                f"{r['tol']:.3g} (fp32 plain {r['plain_err']:.3g}); "
+                f"{r['edges']} edges in {r['nc']} chunks, fill "
+                f"{r['fill']:.3f}, {r['nseg']} items")
 
     # ---- the split paths at full size: density-rep's plans with their hub
     # row blocks cut into pieces of 4 members (K9) or blocks (K2) and their
@@ -1592,8 +1613,8 @@ def smoke() -> int:
                 log(f"spmm_minmax_v4 {name:11s} {reduce} K={k}: "
                     f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library "
                     f"values-only {r['library_ms']:.4f}, bound "
-                    f"{r['bound'][0]:.4f} by {r['bound'][1]}); bit-exact, "
-                    f"{r['nsplit']} split rows of {r['nseg']} segments")
+                    f"{r['bound'][0]:.4f} by {r['bound'][1]}); bit-exact; "
+                    f"{r['walk']}")
 
     # ---- the paths ---------------------------------------------------------
     kernels = {"spmm_bsr": spmm_bsr, "spmm_stream": spmm_stream,

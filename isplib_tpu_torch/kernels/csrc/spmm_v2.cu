@@ -12,8 +12,9 @@
 // What bounds it on an H100: the gathered x rows (K*4 B a real slot, from
 // L2) and the latency of those gathers; the real slots' planes and the
 // output are the HBM bytes, and two operations per slot and feature are far
-// below the fp32 peak.  The design this replaced (v2_cell.cuh: a CTA per
-// run of 8 chunks and K tile of 32 or 64, the cell's x tile loaded
+// below the fp32 peak.  The design this replaced (a cell walk, whose file
+// went when the max/min kernel, its last user, moved to minmax_walk.cuh: a
+// CTA per run of 8 chunks and K tile of 32 or 64, the cell's x tile loaded
 // synchronously at every cell change, every slot read, pads included, one
 // live slot at a time per warp, an rb x KT shared accumulator fed by
 // shared atomics and flushed into a zeroed output with global atomics:

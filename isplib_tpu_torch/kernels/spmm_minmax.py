@@ -8,8 +8,11 @@ the lowest edge id (the plan's id plane) that attains it; empty rows give
 0 and ``sentinel``.  out is ``sign · (sign · product + 0.0)`` of the winner,
 its product with a zero made +0.0 before the sign of min is put back, as
 the TPU kernel gives it.  Exact fp32, so kernel and plain version agree bit
-for bit.  For a CUDA tensor the wrapper launches the kernel or raises; the
-plain version runs only for a CPU tensor (and in ``chip_smoke.py``).
+for bit.  The kernel walks the plan's schedule (``TiledPlanV2.mm_sched``,
+the max/min walk shared with K3) over the real slots alone.  For a CUDA
+tensor the wrapper launches the kernel or raises (a plan without its
+schedule too); the plain version runs only for a CPU tensor (and in
+``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from ..ops.reference import _ARG_EDGE_FEATURE_BYTES, _chunks
 from ..ops.semiring import Reduce
 from ..sparse.tiling_v2 import TiledPlanV2
 from . import build
+from .minmax_walk import Args, launch_args, pitched
 from .spmm_v2 import check_operand
 
 __all__ = ["spmm_minmax_v2", "spmm_minmax_v2_plain", "LAUNCHES"]
@@ -76,8 +80,8 @@ def spmm_minmax_v2_plain(plan: TiledPlanV2, x: torch.Tensor, reduce,
 @functools.cache
 def _lib():
     fn = build.load("spmm_minmax").spmm_minmax_v2_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.POINTER(Args), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -86,7 +90,10 @@ def spmm_minmax_v2(plan: TiledPlanV2, x: torch.Tensor, reduce,
                    sentinel: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Max/min SpMM of the with-eids plan times x → ``(out (R, K) float32,
     arg (R, K) int32)``; ``sentinel`` is the arg of empty rows (the sharded
-    path passes a pad slot of the shard's edge arrays)."""
+    path passes a pad slot of the shard's edge arrays).
+
+    On CUDA a call is up to three launches on the current stream, counted as
+    one in ``LAUNCHES`` (as K3's: ``minmax_walk.cuh``)."""
     global LAUNCHES
     sign = _sign(plan, reduce, sentinel)
     check_operand(plan, x)
@@ -95,6 +102,10 @@ def spmm_minmax_v2(plan: TiledPlanV2, x: torch.Tensor, reduce,
     if x.device.type != "cuda":
         raise ValueError(f"spmm_minmax_v2 runs on cuda or cpu, not "
                          f"{x.device}")
+    s = plan.mm_sched
+    if s is None:
+        raise ValueError("the plan has no K7 schedule: build it with "
+                         "build_plan_v2_arrays(..., with_eids=True)")
     k = x.shape[1]
     if plan.fill == 0.0 or k == 0:
         return (x.new_zeros(plan.num_rows, k),
@@ -102,14 +113,12 @@ def spmm_minmax_v2(plan: TiledPlanV2, x: torch.Tensor, reduce,
                            device=x.device))
     out = torch.empty(plan.num_rows, k, dtype=torch.float32, device=x.device)
     arg = torch.empty(plan.num_rows, k, dtype=torch.int32, device=x.device)
-    scratch = torch.zeros(plan.num_rows, k, dtype=torch.int64,
-                          device=x.device)
-    err = _lib()(plan.edges.data_ptr(), plan.rb_locals.data_ptr(),
-                 plan.cell_starts.data_ptr(), x.data_ptr(), out.data_ptr(),
-                 arg.data_ptr(), scratch.data_ptr(), plan.nc, plan.n_cells,
-                 plan.eb, plan.rb, plan.ct, plan.nct, plan.nrb_s,
-                 plan.num_rows, plan.num_cols, k, int(sign < 0), sentinel,
-                 x.device.index,
+    scratch = torch.empty(s.nsplit, k, dtype=torch.int64, device=x.device)
+    x = pitched(x)
+    args = launch_args(s, x, out, arg, scratch, plan.num_rows,
+                       plan.num_cols, k, sign < 0, sentinel)
+    err = _lib()(plan.edges.data_ptr(), s.chunk_col.data_ptr(), plan.eb,
+                 ctypes.byref(args), x.device.index,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"spmm_minmax_v2 launch failed: CUDA error {err}")

@@ -5,9 +5,12 @@ Counterpart of ``isplib_tpu/kernels/spmm_minmax_v4.py::_v4mm_kernel`` (K3):
 ``out[r, k]`` is the max (or min) over the edges e of row r of
 ``value[e] * x[col[e], k]`` and ``arg[r, k]`` the lowest edge id that
 attains it; empty rows give 0 and ``sentinel``.  Exact fp32, so kernel and
-plain version agree bit for bit.  For a CUDA tensor the wrapper launches the
-kernel or raises; the plain version runs only for a CPU tensor (and in
-``chip_smoke.py``, which holds the kernel against it).
+plain version agree bit for bit.  The kernel walks the plan's schedule
+(``MinMaxPlan.sched``, the max/min walk shared with K7): warps that own up
+to N edges of a row gather its x rows.  For a CUDA tensor the wrapper launches the
+kernel or raises (a plan without its schedule too); the plain version runs
+only for a CPU tensor (and in ``chip_smoke.py``, which holds the kernel
+against it).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from ..ops.reference import _ARG_EDGE_FEATURE_BYTES, _chunks
 from ..ops.semiring import Reduce
 from ..sparse.tiling_v4mm import MinMaxPlan
 from . import build
+from .minmax_walk import Args, launch_args, pitched
 
 __all__ = ["spmm_minmax_v4", "spmm_minmax_v4_plain", "LAUNCHES"]
 
@@ -94,8 +98,8 @@ def spmm_minmax_v4_plain(plan: MinMaxPlan, col: torch.Tensor,
 @functools.cache
 def _lib():
     fn = build.load("spmm_minmax_v4").spmm_minmax_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(Args),
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -106,7 +110,12 @@ def spmm_minmax_v4(plan: MinMaxPlan, col: torch.Tensor, value: torch.Tensor,
     """Max/min SpMM of the CSR edges (``col``, ``value``; padded, CSR order)
     cut by ``plan``, times x → ``(out (R, K) float32, arg (R, K) int32)``.
     ``sentinel`` is the arg of empty rows: the dispatcher passes the graph's
-    ``nnz_padded - 1``."""
+    ``nnz_padded - 1``.
+
+    On CUDA a call is up to three launches on the current stream, counted
+    as one in ``LAUNCHES``: a pre-pass (rows without edges, the split rows'
+    scratch), the walk, the split rows' decode.  An odd K reads a copy of
+    x padded to a multiple of 4."""
     global LAUNCHES
     negate = _negate(reduce)
     _check(plan, col, value, x, sentinel)
@@ -115,17 +124,22 @@ def spmm_minmax_v4(plan: MinMaxPlan, col: torch.Tensor, value: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"spmm_minmax_v4 runs on cuda or cpu, not "
                          f"{x.device}")
+    if plan.sched is None:
+        raise ValueError("the plan has no K3 schedule: build it with "
+                         "build_minmax_plan(..., schedule=True) or "
+                         "build_tiling")
     k = x.shape[1]
     out = torch.empty(plan.num_rows, k, dtype=torch.float32, device=x.device)
     arg = torch.empty(plan.num_rows, k, dtype=torch.int32, device=x.device)
     if plan.num_rows == 0 or k == 0:
         return out, arg
-    scratch = torch.zeros(plan.nsplit, k, dtype=torch.int64, device=x.device)
-    err = _lib()(col.data_ptr(), value.data_ptr(), plan.seg_ptr.data_ptr(),
-                 plan.seg_row.data_ptr(), plan.seg_slot.data_ptr(),
-                 plan.split_rows.data_ptr(), x.data_ptr(), out.data_ptr(),
-                 arg.data_ptr(), scratch.data_ptr(), plan.nseg, plan.nsplit,
-                 k, int(negate), sentinel, x.device.index,
+    s = plan.sched
+    scratch = torch.empty(s.nsplit, k, dtype=torch.int64, device=x.device)
+    x = pitched(x)
+    args = launch_args(s, x, out, arg, scratch, plan.num_rows,
+                       plan.num_cols, k, negate, sentinel)
+    err = _lib()(col.data_ptr(), value.data_ptr(), ctypes.byref(args),
+                 x.device.index,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"spmm_minmax_v4 launch failed: CUDA error {err}")

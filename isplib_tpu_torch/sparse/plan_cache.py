@@ -38,8 +38,10 @@ __all__ = ["plan_cache_path", "save_host_plans", "load_host_plans",
 
 # Bump when a plan layout or a plan dataclass changes incompatibly.  2: the
 # v1 and v3 plans carry their kernels' schedules (``sched``); 3: so do the
-# v5 plans (K2's) and the v2 plans without edge ids (K8's).
-PLAN_FORMAT_VERSION = 3
+# v5 plans (K2's) and the v2 plans without edge ids (K8's); 4: the max/min
+# plans carry the max/min walk's schedule (``MinMaxPlan.sched``, K3's;
+# ``TiledPlanV2.mm_sched``, K7's).
+PLAN_FORMAT_VERSION = 4
 
 _MODULE_PREFIX = "isplib_tpu_torch."
 

@@ -16,9 +16,10 @@ would compute ``spmm(A, g)``.  ``fwd`` and ``bwd`` are of one plan version:
  1    ``TiledPlan`` (here)                K10
 ====  =================================  =====================================
 
-``fwd_mm`` is a segment work list over the CSR: it drives max/min
-``spmm(A, x)`` with the winning edge ids, the SDDMM (K4), the FusedMM forward
-(K5) and its ``grad_x`` pass (K6 pass A).  ``bwd_mm`` is the same list over
+``fwd_mm`` is a segment work list over the CSR: it drives the SDDMM (K4),
+the FusedMM forward (K5) and its ``grad_x`` pass (K6 pass A), and its
+schedule (``fwd_mm.sched``) max/min ``spmm(A, x)`` with the winning edge
+ids (K3).  ``bwd_mm`` is the same list over
 the CSC, the rows of Aᵀ: the FusedMM ``grad_y`` pass (K6 pass B) walks it.
 Both are built for every version.  The JAX package runs its FusedMM kernel
 only on a ``version=4`` tiling and its SDDMM kernel only on a tiling with
@@ -337,8 +338,8 @@ def build_tiling_from_numpy(graph: CSRGraph, arrays: dict, version: int = 5,
                             **plan_kwargs) -> TiledGraph:
     """Attach the plans of A and Aᵀ of ``version``, built from the host
     arrays of ``graph._build_arrays`` on the graph's device, and the segment
-    work lists of A (from ``arrays["rowptr"]``) and Aᵀ (from
-    ``arrays["csc_colptr"]``).
+    work lists of A (from ``arrays["rowptr"]``, with K3's schedule) and Aᵀ
+    (from ``arrays["csc_colptr"]``).
 
     ``plan_kwargs`` are the keys of ``PLAN_KEYS[version]``; any other key
     raises ``ValueError``.  ``k``, the expected feature width, sizes the v2
@@ -365,7 +366,8 @@ def build_tiling_from_numpy(graph: CSRGraph, arrays: dict, version: int = 5,
                       arrays["csc_value"][:nnz], graph.num_cols,
                       graph.num_rows) if build_backward else None,
             fwd_mm=build_minmax_plan(arrays["rowptr"], graph.num_rows,
-                                     graph.num_cols, graph.device),
+                                     graph.num_cols, graph.device,
+                                     schedule=True),
             bwd_mm=build_minmax_plan(arrays["csc_colptr"], graph.num_cols,
                                      graph.num_rows, graph.device))
         if cache_path is not None:

@@ -17,15 +17,17 @@ for array:
 * ``cell_starts`` (n_super·nct + 1,) int32: the chunk range of each cell.
 
 A chunk's rows are ``(s·nrb_s + rb_locals[c])·rb + plane 2`` and its
-columns ``(cell % nct)·ct + plane 0``, with ``s = cell // nct``.  The CUDA
-kernel K7 (``kernels/spmm_minmax``) reads the arrays as they are.
+columns ``(cell % nct)·ct + plane 0``, with ``s = cell // nct``.
 
 Beside those arrays, and never in place of them, a plan without edge ids
 carries the schedule that K8 (``kernels/spmm_v2``) walks
 (``RowScheduleV2``), derived once per plan on the plan's device, in the
 form of K10's ``RowSchedule``: each row's real slots, cut into work items
 of at most ``ITEM_SLOTS``, and each chunk's column and row offsets, so a
-slot decodes with no search for its cell.
+slot decodes with no search for its cell.  A with-eids plan carries the
+schedule that K7 (``kernels/spmm_minmax``) walks instead (``mm_sched``, the
+max/min walk of ``minmax_sched.py`` over its real slots: those with an
+id, value-0 edges included), derived the same way.
 
 Left out of the port: the native OpenMP build (the JAX package takes it
 for row-sorted input without edge ids and gets the same arrays; the numpy
@@ -40,15 +42,19 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 
+if TYPE_CHECKING:
+    from .minmax_sched import MinMaxSchedule
+
 __all__ = ["TiledPlanV2", "RowScheduleV2", "build_plan_v2_arrays",
-           "derive_v2_schedule", "row_items", "ITEM_SLOTS"]
+           "derive_v2_schedule", "derive_v2_minmax_schedule", "row_items",
+           "ITEM_SLOTS"]
 
 _LANE = 128
 _TAIL = 8  # inert chunks after the real ones, as in the JAX plan
@@ -134,6 +140,7 @@ class TiledPlanV2:
     kt: int = 256              # the JAX kernel's K tile (VMEM budget)
     gd: int = 1                # the JAX kernel's chunks per DMA
     sched: Optional[RowScheduleV2] = None  # K8's walk (None with edge ids)
+    mm_sched: Optional["MinMaxSchedule"] = None  # K7's (with edge ids only)
 
     @property
     def nct(self) -> int:
@@ -221,6 +228,28 @@ def derive_v2_schedule(plan: TiledPlanV2,
                          chunk_row=row0.to(torch.int32).contiguous())
 
 
+def derive_v2_minmax_schedule(plan: TiledPlanV2, **kw) -> "MinMaxSchedule":
+    """K7's schedule of a with-eids ``plan``: the max/min walk over its
+    real slots (id >= 0; a value-0 edge is a candidate, its product 0) as
+    flat slot indices, with each chunk's first column; ``kw`` as
+    ``minmax_sched.derive_walk`` takes them."""
+    from .minmax_sched import derive_walk
+    if not plan.with_eids:
+        raise ValueError("K7 walks plans with edge ids; a plan without them "
+                         "is K8's")
+    if plan.nc * plan.eb >= 2**31:
+        raise ValueError(f"{plan.nc * plan.eb} slots: K7's int32 slot "
+                         "index overflows")
+    s = plan.slots()
+    # an empty plan's one chunk is all zeros, its ids included
+    flat = torch.nonzero((s["eid"] >= 0) & (plan.fill > 0)).reshape(-1)
+    sched = derive_walk(flat, s["row"][flat], plan.num_rows,
+                        refs_are_positions=False, ids=s["eid"][flat],
+                        label="K7", **kw)
+    return dataclasses.replace(sched, chunk_col=plan.chunk_offsets()[1].to(
+        torch.int32).contiguous())
+
+
 def build_plan_v2_arrays(
     row: np.ndarray, col: np.ndarray, val: np.ndarray,
     num_rows: int, num_cols: int,
@@ -241,7 +270,7 @@ def build_plan_v2_arrays(
     do not depend on them.  ``with_eids`` adds the edge-id plane (the
     max/min kernel needs it); its ties go to the lowest id, which is the
     first edge of a row in plan order for (row, col)-sorted input.  A plan
-    without edge ids carries K8's schedule.
+    without edge ids carries K8's schedule, one with them K7's.
     """
     if eb % _LANE or rb % _LANE or ct % _LANE:
         raise ValueError("rb, ct and eb must be multiples of 128")
@@ -265,7 +294,8 @@ def build_plan_v2_arrays(
             rb=rb, ct=ct, eb=eb, nc=nc, nrb_s=nrb_s, n_super=n_super,
             num_rows=num_rows, num_cols=num_cols, fill=fill, kt=kt, gd=gd)
         if with_eids:
-            return p
+            return dataclasses.replace(p, mm_sched=derive_v2_minmax_schedule(
+                p))
         t0 = time.perf_counter()
         p = dataclasses.replace(p, sched=derive_v2_schedule(p))
         s = p.sched

@@ -26,8 +26,11 @@ from isplib_tpu_torch.ops.semiring import (FusedOp, Reduce, ReduceOp,
 from isplib_tpu_torch.sparse.tiling import (SEG_SLOTS, build_plan_v1_arrays,
                                             build_tiling)
 from isplib_tpu_torch.sparse.tiling_v2 import (build_plan_v2_arrays,
+                                               derive_v2_minmax_schedule,
                                                derive_v2_schedule)
+from isplib_tpu_torch.sparse.minmax_sched import ITEM_EDGES
 from isplib_tpu_torch.sparse.tiling_v3 import build_plan_v3_arrays
+from isplib_tpu_torch.sparse.tiling_v4mm import derive_minmax_schedule
 from isplib_tpu_torch.sparse.tiling_v5 import (SEG_EDGES, build_hybrid_plan,
                                                derive_block_schedule)
 
@@ -180,18 +183,51 @@ def zero_tie_graph(device, num_rows=900, num_cols=700):
                               edge_multiple=128, device=device)
 
 
+def dense_block_graph(device, n=640):
+    """Every 128x128 block dense (~300 edges: rows read the same x rows),
+    unit, zero and -1 values (ties on rounded x, ±0.0 products), the last
+    20 rows empty."""
+    rng = np.random.default_rng(3)
+    row = rng.integers(0, n - 20, 8000)
+    col = rng.integers(0, n, 8000)
+    val = rng.choice(np.float32([-1.0, 0.0, 1.0]), 8000, p=[0.3, 0.2, 0.5])
+    return pt.from_edge_index(np.stack([col, row]), num_nodes=n,
+                              edge_value=val, edge_multiple=128,
+                              device=device)
+
+
+MINMAX_GRAPHS = {"hub": hub_graph, "ties": zero_tie_graph,
+                 "dense": dense_block_graph}
+# the max/min walk's schedules: the plan's own (items of 256 edges: the
+# main path's), and items of 16 edges (rows split over items everywhere)
+MINMAX_SCHEDULES = {"default": {}, "gather-16": dict(item_edges=16)}
+
+
+def check_minmax_schedule(s, sched, graph):
+    """The schedule cuts items as it is there to, with split rows where
+    a row outgrows them."""
+    assert s.item_edges == MINMAX_SCHEDULES[sched].get("item_edges",
+                                                       ITEM_EDGES)
+    assert s.nsplit > 0 or (sched == "default" and graph == "dense")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 32, 41, 130, 602])
 @pytest.mark.parametrize("reduce", ["max", "min"])
-@pytest.mark.parametrize("ties", [False, True])
-def test_minmax_kernel_matches_plain_version(cuda, ties, reduce, k):
+@pytest.mark.parametrize("graph", sorted(MINMAX_GRAPHS))
+@pytest.mark.parametrize("sched", sorted(MINMAX_SCHEDULES))
+def test_minmax_kernel_matches_plain_version(cuda, sched, graph, reduce, k):
     """Exact fp32 on both sides: values equal bit for bit (the winner's own
-    product, so also the sign of a zero), args equal."""
-    g = zero_tie_graph(cuda) if ties else hub_graph(cuda)
+    product, so also the sign of a zero), args equal; each graph over the
+    plan's own schedule and over items of 16 edges."""
+    g = MINMAX_GRAPHS[graph](cuda)
     plan = build_tiling(g).fwd_mm
-    assert plan.nsplit > 0
+    if MINMAX_SCHEDULES[sched]:
+        plan = dataclasses.replace(plan, sched=derive_minmax_schedule(
+            plan, **MINMAX_SCHEDULES[sched]))
+    check_minmax_schedule(plan.sched, sched, graph)
     x = torch.randn(g.num_cols, k, device=cuda)
-    if ties:
+    if graph != "hub":
         x = x.round()
     before = spmm_minmax_v4.LAUNCHES
     got = spmm_minmax_v4.spmm_minmax_v4(plan, g.col, g.value, x, reduce,
@@ -407,10 +443,13 @@ def test_fused_mm_on_cuda_runs_the_kernels(cuda, x_grad):
     assert_near_plain(grads[1], grads[3])
 
 
-def v2_case(device, geometry, ties, k, with_eids=True):
+def v2_case(device, geometry, ties, k, with_eids=True, graph=None):
     """A v2 plan (with edge ids: K7's) of hub_graph's (or
-    zero_tie_graph's) edges with ``geometry`` = (rb, ct, eb), and x."""
-    g = zero_tie_graph("cpu") if ties else hub_graph("cpu")
+    zero_tie_graph's, or the ``MINMAX_GRAPHS`` entry ``graph``'s) edges
+    with ``geometry`` = (rb, ct, eb), and x (rounded where values tie)."""
+    ties = ties or graph in ("ties", "dense")
+    graph = graph or ("ties" if ties else "hub")
+    g = MINMAX_GRAPHS[graph]("cpu")
     n = g.nnz
     rb, ct, eb = geometry
     plan = build_plan_v2_arrays(
@@ -438,12 +477,18 @@ def test_v2_sum_kernel_matches_plain_version(cuda, geometry, k):
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 32, 41, 130, 602])
 @pytest.mark.parametrize("reduce", ["max", "min"])
-@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("graph", sorted(MINMAX_GRAPHS))
+@pytest.mark.parametrize("sched", sorted(MINMAX_SCHEDULES))
 @pytest.mark.parametrize("geometry", [(128, 128, 512), (256, 512, 512)])
-def test_v2_minmax_kernel_matches_plain_version(cuda, geometry, ties, reduce,
-                                                k):
-    """K7: exact fp32 on both sides, values bit for bit, args equal."""
-    plan, x, sentinel = v2_case(cuda, geometry, ties, k)
+def test_v2_minmax_kernel_matches_plain_version(cuda, geometry, sched, graph,
+                                                reduce, k):
+    """K7: exact fp32 on both sides, values bit for bit, args equal; the
+    schedules as in test_minmax_kernel_matches_plain_version."""
+    plan, x, sentinel = v2_case(cuda, geometry, False, k, graph=graph)
+    if MINMAX_SCHEDULES[sched]:
+        plan = dataclasses.replace(plan, mm_sched=derive_v2_minmax_schedule(
+            plan, **MINMAX_SCHEDULES[sched]))
+    check_minmax_schedule(plan.mm_sched, sched, graph)
     before = spmm_minmax.LAUNCHES
     got = spmm_minmax.spmm_minmax_v2(plan, x, reduce, sentinel)
     want = spmm_minmax.spmm_minmax_v2_plain(plan, x, reduce, sentinel)
@@ -674,6 +719,43 @@ def test_v2_v5_wrappers_raise_without_schedules(cuda):
         spmm_bsr.spmm_bsr(dataclasses.replace(p5, sched=None), x)
     with pytest.raises(ValueError, match="K8 schedule"):
         spmm_v2.spmm_v2(dataclasses.replace(p2, sched=None), x)
+
+
+def test_minmax_cpu_tensors_run_the_plain_versions_without_schedules():
+    """K3 and K7 on the CPU run their plain versions whatever the plan's
+    schedule, and count no launch."""
+    g = hub_graph("cpu")
+    p3 = build_tiling(g).fwd_mm
+    p7, x, sentinel = v2_case("cpu", (128, 128, 512), False, 8)
+    x3 = torch.randn(g.num_cols, 8)
+    before = (spmm_minmax_v4.LAUNCHES, spmm_minmax.LAUNCHES)
+    for call, plan, args, field in (
+            (spmm_minmax_v4.spmm_minmax_v4, p3,
+             (g.col, g.value, x3, "max", g.nnz_padded - 1), "sched"),
+            (spmm_minmax.spmm_minmax_v2, p7, (x, "min", sentinel),
+             "mm_sched")):
+        assert getattr(plan, field) is not None
+        want = call(plan, *args)
+        got = call(dataclasses.replace(plan, **{field: None}), *args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (spmm_minmax_v4.LAUNCHES, spmm_minmax.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+def test_minmax_wrappers_raise_without_schedules(cuda):
+    """For a CUDA tensor a max/min plan without its schedule raises: the
+    old kernels are gone and no plain version stands in."""
+    g = hub_graph(cuda)
+    p3 = build_tiling(g).fwd_mm
+    p7, x, sentinel = v2_case(cuda, (128, 128, 512), False, 8)
+    with pytest.raises(ValueError, match="K3 schedule"):
+        spmm_minmax_v4.spmm_minmax_v4(
+            dataclasses.replace(p3, sched=None), g.col, g.value,
+            torch.randn(g.num_cols, 8, device=cuda), "max",
+            g.nnz_padded - 1)
+    with pytest.raises(ValueError, match="K7 schedule"):
+        spmm_minmax.spmm_minmax_v2(dataclasses.replace(p7, mm_sched=None),
+                                   x, "max", sentinel)
 
 
 @pytest.mark.gpu

@@ -25,8 +25,14 @@
   scale; K2's walk with the residual half against JAX's
   ``spmm_hybrid_v5`` within the bf16 contract), on a hub case with a
   split row block, a split row and an empty row block; the derivation
-  sites (versions 2, 3 and 5, the sharded routes; none for with-eids
-  plans);
+  sites (versions 2, 3 and 5, the sharded routes; K7's for with-eids
+  plans, K3's for ``fwd_mm``);
+* the max/min walk of K3 and K7 (``minmax_sched.py``): a recount of each
+  schedule (items, split and empty rows) and a plain walk over it, with
+  the kernels' tie rule, equal to the plain versions bit for bit and to
+  the interpret-mode Pallas kernels (values 1e-6, args exactly), on a
+  graph with a dense corner, a hub row, empty rows, value-0 edges, ties
+  on rounded x and ±0.0 products (K7's ids out of slot order);
 * a forward-only tiling runs the reference transpose path for ``grad_x``;
   ``build_tiling`` rejects keys foreign to a version; ``tiling=`` on graph
   construction.
@@ -852,7 +858,7 @@ def test_plans_carry_their_kernels_schedules(version):
     """Both directions of ``build_tiling(version=2|5)`` and the version-3
     residuals carry K8's or K2's schedule; the sharded route's plans too
     (version 2: K8's; version 5: K2's where a shard plan has blocks); its
-    with-eids max/min plans carry none."""
+    with-eids max/min plans carry K7's instead, and ``fwd_mm`` K3's."""
     row, col, val, r, c = coo(20, num_rows=640, num_cols=640)
     g = pt.from_edge_index(np.stack([col, row]), num_nodes=r,
                            num_src_nodes=c, edge_value=val,
@@ -861,6 +867,7 @@ def test_plans_carry_their_kernels_schedules(version):
           3: dict(rb=128, ct=128, eb=128, dense_threshold=250, g=4),
           5: dict(dense_threshold=250)}[version]
     tiled = build_tiling(g, version=version, k=16, **kw)
+    assert tiled.fwd_mm.sched is not None
     for plan in (tiled.fwd, tiled.bwd):
         if version == 3:
             assert plan.bsr.sched is not None
@@ -878,3 +885,311 @@ def test_plans_carry_their_kernels_schedules(version):
     assert all(p.sched is not None for p in plans[:1])  # shard 0, local
     for plan in (p for i in sg.held for p in sg.shard(i).plans_mm):
         assert plan.with_eids and plan.sched is None
+        assert plan.mm_sched is not None
+
+
+# ---------------------------------------------------------------------------
+# The max/min walk that K3 and K7 share (sparse/minmax_sched.py): a recount
+# of each schedule and a plain walk over it, with the kernels' tie rule,
+# against the plain versions (bit for bit) and the interpret-mode Pallas
+# kernels
+# ---------------------------------------------------------------------------
+
+MM_ROWS, MM_COLS = 700, 2000
+# item_edges of derive_walk: the default (256: the hub row in two items),
+# and items of 1 (every row of two edges or more split), 5, 16 and 100
+MM_SCHEDULES = {"default": {},
+                "items-1": dict(item_edges=1),
+                "items-5": dict(item_edges=5),
+                "items-16": dict(item_edges=16),
+                "items-100": dict(item_edges=100)}
+
+
+def minmax_coo(seed=30):
+    """CSR-ordered edges with what the walk must meet: a dense corner (rows
+    and columns < 256, ~23 edges a row, so rows read the same x rows),
+    sparse uniform rows, a hub row of 500 edges (two items of 256), the
+    last 40 rows empty, values in {-1, 0, 1} (value-0 edges, ±0.0
+    products) and duplicate edges."""
+    rng = np.random.default_rng(seed)
+    nc, nu, nh = 6000, 1500, 500
+    row = np.concatenate([rng.integers(0, 256, nc),
+                          rng.integers(0, MM_ROWS - 40, nu),
+                          np.full(nh, 600)])
+    col = np.concatenate([rng.integers(0, 256, nc),
+                          rng.integers(0, MM_COLS, nu),
+                          rng.integers(0, MM_COLS, nh)])
+    row = np.concatenate([row, row[:300]])
+    col = np.concatenate([col, col[:300]])
+    o = np.lexsort((col, row))
+    row, col = row[o], col[o]
+    val = rng.choice(np.float32([-1.0, 0.0, 1.0]), row.shape[0],
+                     p=[0.4, 0.2, 0.4])
+    return row, col, val
+
+
+def minmax_x(k, seed=31):
+    """Rounded features: products tie, and round() gives -0.0 too."""
+    return torch.from_numpy(np.round(np.random.default_rng(seed).normal(
+        size=(MM_COLS, k))).astype(np.float32))
+
+
+class K3Case:
+    """K3's plan of ``minmax_coo`` and its edge decoder (ref = CSR
+    position = id)."""
+
+    k7 = False
+
+    def __init__(self, **kw):
+        from isplib_tpu_torch.sparse.tiling_v4mm import (
+            build_minmax_plan, derive_minmax_schedule)
+        row, col, val = minmax_coo()
+        self.g = pt.from_edge_index(np.stack([col, row]), num_nodes=MM_ROWS,
+                                    num_src_nodes=MM_COLS, edge_value=val,
+                                    edge_multiple=128, device="cpu")
+        self.plan = build_minmax_plan(self.g.rowptr.numpy(), MM_ROWS,
+                                      MM_COLS, "cpu", schedule=True)
+        if kw:
+            self.plan = dataclasses.replace(
+                self.plan, sched=derive_minmax_schedule(self.plan, **kw))
+        self.sched = self.plan.sched
+        self.sentinel = self.g.nnz_padded - 1
+        self.rows = self.plan.edge_rows()
+        self.refs = torch.arange(self.g.nnz)
+
+    def decode(self, ref):
+        """(row, col, val, id) of refs."""
+        ref = ref.long()
+        return (self.rows[ref], self.g.col.long()[ref], self.g.value[ref],
+                ref)
+
+    def plain(self, x, reduce):
+        from isplib_tpu_torch.kernels import spmm_minmax_v4 as k3
+        return k3.spmm_minmax_v4(self.plan, self.g.col, self.g.value, x,
+                                 reduce, self.sentinel)
+
+
+class K7Case:
+    """K7's with-eids plan of ``minmax_coo`` and its edge decoder (ref =
+    flat slot index); ids a permutation, out of slot order, unless
+    ``permuted`` is False (each edge's input position)."""
+
+    k7 = True
+
+    def __init__(self, permuted=True, **kw):
+        row, col, val = minmax_coo()
+        self.ids = (np.random.default_rng(32).permutation(row.shape[0])
+                    if permuted else None)
+        self.coo = (row, col, val)
+        self.plan = build_plan_v2_arrays(
+            row, col, val, MM_ROWS, MM_COLS, rb=128, ct=128, eb=128,
+            with_eids=True, orig_ids=self.ids, device="cpu")
+        if kw:
+            self.plan = dataclasses.replace(
+                self.plan, mm_sched=tiling_v2.derive_v2_minmax_schedule(
+                    self.plan, **kw))
+        self.sched = self.plan.mm_sched
+        self.sentinel = row.shape[0] + 7
+        p = self.plan
+        self.e = p.edges[:p.nc].reshape(p.nc, 4, p.eb)
+        self.row0 = p.chunk_offsets()[0]
+        self.refs = torch.nonzero(self.e[:, 3].reshape(-1) >= 0).flatten()
+
+    def decode(self, ref):
+        ref = ref.long()
+        ch, sl = ref // self.plan.eb, ref % self.plan.eb
+        return (self.row0[ch] + self.e[ch, 2, sl],
+                self.sched.chunk_col.long()[ch] + self.e[ch, 0, sl],
+                self.e[ch, 1, sl].view(torch.float32),
+                self.e[ch, 3, sl].long())
+
+    def plain(self, x, reduce):
+        from isplib_tpu_torch.kernels import spmm_minmax as k7
+        return k7.spmm_minmax_v2(self.plan, x, reduce, self.sentinel)
+
+
+MM_CASES = {"K3": K3Case, "K7": K7Case}
+
+
+def minmax_recount(case):
+    """The schedule recounted in numpy from the edges the decoder gives:
+    each item (row, refs: the row's edges by id, cut every item_edges),
+    the rows to split and the empty rows."""
+    s = case.sched
+    row, _, _, ids = (t.numpy() for t in case.decode(case.refs))
+    refs = case.refs.numpy()
+    items, split = [], []
+    for r in np.unique(row):
+        m = row == r
+        rr = refs[m][np.argsort(ids[m], kind="stable")]  # by id
+        cut = [rr[a:a + s.item_edges]
+               for a in range(0, rr.shape[0], s.item_edges)]
+        items += [(int(r), list(c)) for c in cut]
+        if len(cut) > 1:
+            split.append(int(r))
+    empty = np.setdiff1d(np.arange(s.row_slot.shape[0]), row)
+    return items, split, empty
+
+
+@pytest.mark.parametrize("sched", sorted(MM_SCHEDULES))
+@pytest.mark.parametrize("kernel", sorted(MM_CASES))
+def test_minmax_schedule_matches_a_recount(kernel, sched):
+    """Items (a row's edges by id), split rows and their scratch rows,
+    empty rows; every real edge once."""
+    case = MM_CASES[kernel](**MM_SCHEDULES[sched])
+    s = case.sched
+    items, split, empty = minmax_recount(case)
+    got_items = []
+    for lo, hi, r in s.items.tolist():
+        refs = (torch.arange(lo, hi) if s.order is None
+                else s.order[lo:hi].long())
+        got_items.append((r, refs.tolist()))
+    assert got_items == items
+    assert (s.order is None) == (kernel == "K3")
+    assert sorted(sum((t for _, t in got_items), [])) == case.refs.tolist()
+    assert s.split_rows.tolist() == split
+    want_slot = np.full(s.row_slot.shape[0], -1)
+    want_slot[split] = np.arange(len(split))
+    np.testing.assert_array_equal(s.row_slot.numpy(), want_slot)
+    np.testing.assert_array_equal(s.zero_rows.numpy(), empty)
+    assert 600 in split  # the hub's items
+    n_hub = sum(r == 600 for r, _ in items)
+    assert n_hub == -(-len(case.refs[case.decode(case.refs)[0] == 600])
+                      // s.item_edges)
+    if sched == "default":
+        assert split == [600]
+    if sched == "items-1":
+        assert min(split) == 0 and len(split) > MM_ROWS // 2
+
+
+def ranges(lo, hi):
+    """The concatenated ranges [lo[i], hi[i]) and each one's index."""
+    n = hi - lo
+    run = torch.repeat_interleave(torch.arange(n.shape[0]), n)
+    return lo[run] + torch.arange(run.shape[0]) - (torch.cumsum(n, 0)
+                                                   - n)[run], run
+
+
+def walk_minmax(case, x, reduce):
+    """The kernels' walk in plain PyTorch, item by item: each item picks,
+    per feature, its winner under the tie rule (the larger product, then
+    the lower id; -0.0 == +0.0); a row of one item stores it (K3: sign·w,
+    the winner's own product; K7: sign·(w + 0.0)); a split row, whose
+    items meet through the 64-bit key's order (zeros as +0.0) in the
+    scratch, is decoded from the key (K3: the winner's product recomputed
+    from its id; K7: sign·w)."""
+    s, k = case.sched, x.shape[1]
+    sgn = -1.0 if reduce == "min" else 1.0
+    num_rows = s.row_slot.shape[0]
+    feats = torch.arange(k)
+    none = 2**62
+
+    it = s.items.long()
+    pos, run = ranges(it[:, 0], it[:, 1])
+    refs = pos if s.order is None else s.order.long()[pos]
+    row = it[run, 2]
+    rows, c, v, e = case.decode(refs)
+    assert torch.equal(rows, row)
+    assert torch.equal(torch.sort(refs).values, torch.sort(case.refs).values)
+
+    # each item's winner and its own product
+    w = (sgn * v)[:, None] * x[c]
+    idx = run[:, None].expand_as(w)
+    best = w.new_full((s.nseg, k), -float("inf")).scatter_reduce(
+        0, idx, w, "amax")
+    cand = torch.where(w == best[run], e[:, None], none)
+    bid = torch.full_like(best, none, dtype=torch.int64).scatter_reduce(
+        0, idx, cand, "amin")
+    at = torch.full((int(e.max()) + 1,), -1, dtype=torch.int64)
+    at[e] = torch.arange(e.shape[0])
+    bw = w[at[bid], feats]
+    item_row = it[:, 2]
+
+    out = torch.full((num_rows, k), float("nan"))
+    arg = torch.full((num_rows, k), -2, dtype=torch.int32)
+    out[s.zero_rows.long()] = 0.0
+    arg[s.zero_rows.long()] = case.sentinel
+
+    slot = s.row_slot.long()[item_row]
+    kw = bw + 0.0  # the key's zero is +0.0
+    alone = slot < 0
+    out[item_row[alone]] = sgn * kw[alone] if case.k7 else sgn * bw[alone]
+    arg[item_row[alone]] = bid[alone].int()
+    split = ~alone
+    sidx = slot[split][:, None].expand(-1, k)
+    kbest = kw.new_full((s.nsplit, k), -float("inf")).scatter_reduce(
+        0, sidx, kw[split], "amax")
+    kid = torch.full_like(kbest, none, dtype=torch.int64).scatter_reduce(
+        0, sidx, torch.where(kw[split] == kbest[slot[split]], bid[split],
+                             none), "amin")
+    r = s.split_rows.long()
+    arg[r] = kid.int()
+    if case.k7:
+        out[r] = sgn * kbest
+    else:
+        _, kc, kv, _ = case.decode(kid.reshape(-1))
+        out[r] = (kv * x[kc, feats.repeat(kid.shape[0])]).view(-1, k)
+    assert not bool(out.isnan().any()) and not bool((arg == -2).any())
+    return out, arg
+
+
+@pytest.mark.parametrize("k", [8, 41])
+@pytest.mark.parametrize("reduce", ["max", "min"])
+@pytest.mark.parametrize("sched", sorted(MM_SCHEDULES))
+@pytest.mark.parametrize("kernel", sorted(MM_CASES))
+def test_minmax_schedule_walk_matches_plain_version(kernel, sched, reduce,
+                                                    k):
+    """Bit for bit, args equal: values of -0.0 and +0.0 included."""
+    case = MM_CASES[kernel](**MM_SCHEDULES[sched])
+    x = minmax_x(k)
+    out, arg = walk_minmax(case, x, reduce)
+    want, want_arg = case.plain(x, reduce)
+    assert torch.equal(arg, want_arg)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert bool(((out == 0) & (arg != case.sentinel)).any())  # zero wins
+
+
+@pytest.mark.parametrize("kernel, reduce", [("K3", "max"), ("K7", "min")])
+def test_minmax_schedule_walk_matches_pallas(kernel, reduce):
+    """The walk over items of 16 edges (split rows all over the graph)
+    against the interpret-mode Pallas kernel: K3's ``spmm_minmax_v4`` on
+    its stripes, K7's ``spmm_minmax_tiled`` on the JAX with-eids plan;
+    values as numbers (1e-6, as tests/test_torch_minmax.py holds K3), args
+    exactly.  K7's ids are the input positions here: the Pallas kernel
+    breaks a tie by plan order, which is id order only then."""
+    from isplib_tpu.kernels.spmm_minmax import spmm_minmax_tiled
+    from isplib_tpu.kernels.spmm_minmax_v4 import spmm_minmax_v4 as jax_k3
+    from isplib_tpu.sparse.tiling_v4mm import build_minmax_stripes
+    kw = MM_SCHEDULES["items-16"]
+    case = (K3Case(**kw) if kernel == "K3"
+            else K7Case(permuted=False, **kw))
+    assert case.sched.nsplit > 100
+    x = minmax_x(8)
+    out, arg = walk_minmax(case, x, reduce)
+    if kernel == "K3":
+        g, n = case.g, case.g.nnz
+        jp = build_minmax_stripes(g.row[:n].numpy(), g.col[:n].numpy(),
+                                  g.value[:n].numpy(), MM_ROWS, MM_COLS,
+                                  k=8)
+        want, want_arg = jax_k3(jp, jnp.asarray(x.numpy()), reduce,
+                                case.sentinel)
+    else:
+        row, col, val = case.coo
+        jp = jax_build_v2(row, col, val, MM_ROWS, MM_COLS, rb=128, ct=128,
+                          eb=128, k=8, with_eids=True, orig_ids=case.ids)
+        want, want_arg = spmm_minmax_tiled(jp, jnp.asarray(x.numpy()),
+                                           reduce, case.sentinel)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_array_equal(arg.numpy(), np.asarray(want_arg))
+
+
+def test_minmax_schedule_rejects_empty_items_and_pieces():
+    """An item of no edges, and K7's schedule of a plan without edge ids
+    (K8's), raise."""
+    case = K3Case()
+    from isplib_tpu_torch.sparse.tiling_v4mm import derive_minmax_schedule
+    with pytest.raises(ValueError, match="at least one"):
+        derive_minmax_schedule(case.plan, item_edges=0)
+    with pytest.raises(ValueError, match="edge ids"):
+        tiling_v2.derive_v2_minmax_schedule(v2_plan("hub"))

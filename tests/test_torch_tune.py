@@ -405,10 +405,10 @@ def test_plan_cache_roundtrip_keeps_dtypes(cfg, tmp_path, monkeypatch):
                          ids=["v1", "v3", "v5", "v2"])
 def test_plan_cache_keeps_the_schedules(cfg, tmp_path, monkeypatch):
     """The v1, v3, v5 and v2 plans carry K10's, K9's, K2's and K8's
-    schedules (the v3 plan's residual K8's too); the cache stores and loads
-    them under format 3, and an entry written under format 2 (v5 and v2
-    plans without schedules) is missed, never read."""
-    assert plan_cache.PLAN_FORMAT_VERSION == 3
+    schedules (the v3 plan's residual K8's too), and ``fwd_mm`` K3's; the
+    cache stores and loads them under format 4, and an entry written under
+    format 3 (max/min plans without schedules) is missed, never read."""
+    assert plan_cache.PLAN_FORMAT_VERSION == 4
     g = graph()
     arrays = host_arrays(g)
 
@@ -417,10 +417,10 @@ def test_plan_cache_keeps_the_schedules(cfg, tmp_path, monkeypatch):
             return [plan.bsr.sched, plan.residual.sched]
         return [plan.sched]
 
-    monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 2)
+    monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 3)
     build_tiling_from_numpy(g, arrays, k=32, cache_tag="s",
                             cache_dir=str(tmp_path), **cfg)
-    monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 3)
+    monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 4)
     built = build_tiling_from_numpy(g, arrays, k=32, cache_tag="s",
                                     cache_dir=str(tmp_path), **cfg)
     assert len(list(tmp_path.glob("plan_s_*.npz"))) == 2
@@ -433,13 +433,15 @@ def test_plan_cache_keeps_the_schedules(cfg, tmp_path, monkeypatch):
                              scheds(getattr(built, f))):
             assert got is not None
             same_plan(got, want)
+    assert loaded.fwd_mm.sched is not None
+    same_plan(loaded.fwd_mm.sched, built.fwd_mm.sched)
 
 
 @pytest.mark.parametrize("marked", [True, False],
                          ids=["fmt-2", "no-fmt"])
 def test_plan_cache_format_2_file_is_a_logged_miss(marked, tmp_path,
                                                     monkeypatch, capsys):
-    """A format-2 entry at the path a format-3 build looks up (one saved
+    """A format-2 entry at the path a format-4 build looks up (one saved
     under format 2, or one written before files carried their format) is
     a logged miss: the plans are rebuilt, with their schedules, and the
     entry is replaced."""
@@ -455,7 +457,7 @@ def test_plan_cache_format_2_file_is_a_logged_miss(marked, tmp_path,
     if marked:
         monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 2)
         plan_cache.save_host_plans(str(path), old)
-        monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 3)
+        monkeypatch.setattr(plan_cache, "PLAN_FORMAT_VERSION", 4)
     else:
         arrays_out: list = []
         spec = json.dumps(plan_cache._encode(old, arrays_out)).encode()
@@ -463,10 +465,10 @@ def test_plan_cache_format_2_file_is_a_logged_miss(marked, tmp_path,
                  **{f"a{i}": a for i, a in enumerate(arrays_out)})
     capsys.readouterr()
     assert plan_cache.load_host_plans(str(path)) is None
-    assert "is format 2, not 3; rebuilding" in capsys.readouterr().err
+    assert "is format 2, not 4; rebuilding" in capsys.readouterr().err
     rebuilt = build_tiling_from_numpy(g, arrays, k=32, cache_tag="f",
                                       cache_dir=str(tmp_path), **cfg)
-    assert "is format 2, not 3" in capsys.readouterr().err
+    assert "is format 2, not 4" in capsys.readouterr().err
     for f in ("fwd", "bwd"):
         same_plan(getattr(rebuilt, f).sched, getattr(built, f).sched)
     loaded = plan_cache.load_host_plans(str(path))
