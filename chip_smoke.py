@@ -16,8 +16,10 @@
    (Aᵀ) plans at K = 32 and 41, and forward at K = 602 (the first layer of
    GraphSAGE-mean and GIN).  Holds each kernel against its plain PyTorch
    version (same rounding, so only the sum order differs: atol =
-   1e-4·max|plain|) and the hybrid SpMM against the fp32 reference (bf16
-   contract: rtol = atol/max = 2e-2); times the kernel, its plain version
+   1e-4·max|plain|; K1 against the plain function evaluated in float64,
+   the fp32 plain version's own error logged beside it, as K8's) and the
+   hybrid SpMM against the fp32 reference (bf16 contract: rtol = atol/max
+   = 2e-2); times the kernel, its plain version
    and the one PyTorch call that computes the same product
    (``torch.sparse.mm`` on a CSR tensor, the yardstick ``library_ms``) with
    CUDA events, beside the bound max(bytes / 3.35 TB/s, operations / peak)
@@ -48,13 +50,13 @@
    and the time by kernel.
 7. SDDMM and FusedMM (K4, K5, K6) on ``scripts/bench_fused.py``'s graph:
    the R-MAT reddit stand-in, ``gen_rmat_graph(11648, 5730794,
-   crc32("reddit"), 4096)``, tiled by ``build_tiling``.  K4 at K = 32 and
-   41 on it and on the density-representative graph; K5 and both passes of
-   K6 for the sigmoid embedding kernel, the t-distribution force model and
-   COPY_RHS + MEAN at K = 32, 41 and 256.  Each held against its plain
-   version at 1e-4·max|plain| and timed beside its bound (and its share of
-   it) and, where one PyTorch call computes the same function, that call
-   (``torch.sparse.sampled_addmm`` for K4; for COPY_RHS + MEAN
+   crc32("reddit"), 4096)``, tiled by ``build_tiling``.  K4 at K = 32, 41
+   and 602 on it and on the density-representative graph; K5 and both
+   passes of K6 for the sigmoid embedding kernel, the t-distribution force
+   model and COPY_RHS + MEAN at K = 32, 41 and 256.  Each held against its
+   plain version at 1e-4·max|plain| and timed beside its bound (and its
+   share of it) and, where one PyTorch call computes the same function,
+   that call (``torch.sparse.sampled_addmm`` for K4; for COPY_RHS + MEAN
    ``torch.sparse.mm`` of A with the mean's values times y for K5, and of
    Aᵀ with the CSC values times g for K6, whose pass B alone runs there;
    none for the SOP pipelines).  Then the paths, each with the launch
@@ -68,7 +70,7 @@
    * the SDDMM path: one backward of ``spmm(tiled, x, "sum")`` with edge
      values that require a gradient on the density-representative graph
      (K4 computes ``grad_value``), and the public ``sddmm`` forward and
-     backward, each against the plain formula;
+     backward, each against the plain formula, then profiled;
    * the fused max route: ``fused_mm`` with AOP = MAX (K3), forward and
      grad against the plain path.
 8. The row-sharded path (``isplib_tpu_torch.dist``) on a 4-shard
@@ -166,7 +168,7 @@ MM_KS = (32, 41, K_WIDE)
 # scripts/bench_fused.py's graph and width
 RMAT_NODES, RMAT_EDGES, FUSED_K = 11_648, 5_730_794, 32
 FUSED_KS = (FUSED_K, 41, 256)   # the embedding width, a ragged and the widest
-SDDMM_KS = (32, 41)
+SDDMM_KS = (32, 41, K_WIDE)
 FUSED_STEPS = 20
 TUNE_ITERS = 10           # chain_time calls per configuration in the sweep
 
@@ -291,15 +293,20 @@ def check_and_time(name, graph, tiled, direction, k, gen):
             + plan.num_rows * k * 4,
             2.0 * plan.nb * 128 * 128 * k, BF16_TENSOR_FLOPS)))
 
-    # ---- K1: residual edges, from a zero output ---------------------------
+    # ---- K1: residual edges, from a zero output, against the plain
+    # function in float64 (the fp32 plain version's index_add_ sums in a
+    # run-to-run order too: its own error is logged) -----------------------
     got1 = torch.zeros(plan.num_rows, k, device=x.device)
     want1 = torch.zeros_like(got1)
     spmm_stream.spmm_stream(plan, x, got1)
+    exact = spmm_stream.spmm_stream_oracle(plan, x, want1)
     spmm_stream.spmm_stream_plain(plan, x, want1)
     torch.cuda.synchronize()
-    err1 = float((got1 - want1).abs().max())
-    tol1 = 1e-4 * float(want1.abs().max())
-    if not err1 <= tol1:
+    err1 = float((got1 - exact).abs().max())
+    tol1 = 1e-4 * float(exact.abs().max())
+    plain_err1 = float((want1 - exact).abs().max())
+    del exact
+    if not (bool(torch.isfinite(got1).all()) and err1 <= tol1):
         raise AssertionError(f"spmm_stream {name}/{direction}/K={k}: max err "
                              f"{err1} > {tol1}")
     lib_r = csr(plan.res_rowptr, plan.res_col, plan.res_val, g.shape)
@@ -307,7 +314,7 @@ def check_and_time(name, graph, tiled, direction, k, gen):
     used_rows = int((plan.res_rowptr.diff() > 0).sum())
     rows.append(dict(
         kernel="spmm_stream", graph=name, direction=direction, k=k,
-        max_abs_err=err1, tol=tol1,
+        max_abs_err=err1, tol=tol1, plain_err=plain_err1,
         ms=cuda_ms(lambda: spmm_stream.spmm_stream(plan, x, got1)),
         plain_ms=cuda_ms(lambda: spmm_stream.spmm_stream_plain(plan, x,
                                                                  want1),
@@ -434,12 +441,13 @@ def check_and_time_sddmm(name, graph, tiled, k, gen):
     lib = torch.sparse.sampled_addmm(pattern, a, bt, beta=0.0)
     lib_err = float((lib.values() - k4.sddmm_plain(plan, graph.col, a, b)[
         :n]).abs().max())
+    wide = k > 64
     return dict(
         kernel="sddmm", graph=name, case="dot", k=k, max_abs_err=err,
         tol=tol, lib_err=lib_err,
         ms=cuda_ms(lambda: k4.sddmm(plan, graph.col, a, b)),
         plain_ms=cuda_ms(lambda: k4.sddmm_plain(plan, graph.col, a, b),
-                         iters=5),
+                         iters=2 if wide else 5, warmup=1),
         library_ms=cuda_ms(lambda: torch.sparse.sampled_addmm(
             pattern, a, bt, beta=0.0)),
         bound=bound_ms(
@@ -620,6 +628,13 @@ def profile_epochs(model, graph, arrays, epochs: int = 5):
     return profile_steps(step, epochs)
 
 
+def kernel_share(per_kernel: dict, key: str, busy_ms: float) -> str:
+    """The busy time of the kernels whose name holds ``key``, and its share
+    of ``busy_ms``."""
+    ms = sum(v for kn, v in per_kernel.items() if key in kn)
+    return f"{ms:.3f} ms ({100 * ms / busy_ms:.1f}% of busy)"
+
+
 def profile_steps(step, epochs: int = 5):
     """``torch.profiler`` over ``epochs`` calls of ``step`` (after one
     untimed), returning the profiled step time on CUDA events, the
@@ -794,6 +809,12 @@ def fused_paths(graphs, cases, drive, gen):
     check_near_plain("SDDMM path sddmm grad_b", gb, bt.grad)
     log(f"SDDMM path: grad_value and sddmm forward and backward agree "
         f"with the plain formula on density-rep ({n} edges)")
+    prof_ms, busy_ms, per_kernel = profile_steps(sddmm_path)
+    log(f"SDDMM path profile: device busy {busy_ms:.3f} ms per pass "
+        f"(profiled pass {prof_ms:.3f} ms), sddmm_kernel "
+        f"{kernel_share(per_kernel, 'sddmm_kernel', busy_ms)}; "
+        + "; ".join(f"{kn[:48]} {v:.3f}"
+                    for kn, v in list(per_kernel.items())[:6]))
 
     # ---- the fused max route (K3) ------------------------------------------
     op = FusedOp(VectorOp.COPY_RHS, ReduceOp.NOOP, None, ScaleOp.MUL,
@@ -1059,7 +1080,8 @@ def sharded_paths(graphs, cases, drive, train, check, unsharded, gen):
             log(f"{name} {label} profile: device busy {busy_ms:.3f} ms per "
                 f"epoch, idle {100 * idle:.1f}% of the "
                 f"{res.train_time_avg * 1e3:.3f} ms epoch (profiled epoch "
-                f"{prof_ms:.3f} ms); "
+                f"{prof_ms:.3f} ms); spmm_stream_kernel "
+                f"{kernel_share(per_kernel, 'spmm_stream_kernel', busy_ms)}; "
                 + "; ".join(f"{k[:48]} {v:.3f}"
                             for k, v in list(per_kernel.items())[:8]))
     finally:
@@ -1500,6 +1522,17 @@ def tuner_paths(graphs, cases, drive, train, check, gen):
     return launches
 
 
+def graph_specs() -> list[tuple[str, int, int, int]]:
+    """(name, nodes, edges, seed) of the two GCN-signal graphs, at
+    bench.py's sizes: reddit at scale 0.05, and its density-representative
+    node count (the full graph's edges per 128x128 block at the same edge
+    count), both built as GCN-signal graphs so both can be trained on."""
+    n, e = int(N_REAL * SCALE), int(E_REAL * SCALE)
+    occ_real = E_REAL / (N_REAL / 128.0) ** 2
+    n_dens = int(128 * np.sqrt(e / occ_real))
+    return [("reddit-sim", n, e, SEED), ("density-rep", n_dens, e, SEED + 7)]
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -1557,15 +1590,8 @@ def smoke() -> int:
             log(f"  ptxas {p.stem.split('-')[0]} {fn}: {props}")
 
     # ---- graphs ------------------------------------------------------------
-    # bench.py's sizes: reddit at scale 0.05, and its density-representative
-    # node count (the full graph's edges per 128x128 block at the same edge
-    # count), both built as GCN-signal graphs so both can be trained on
-    n, e = int(N_REAL * SCALE), int(E_REAL * SCALE)
-    occ_real = E_REAL / (N_REAL / 128.0) ** 2
-    n_dens = int(128 * np.sqrt(e / occ_real))
     graphs = {}
-    for name, nodes, seed in (("reddit-sim", n, SEED),
-                              ("density-rep", n_dens, SEED + 7)):
+    for name, nodes, e, seed in graph_specs():
         t0 = time.perf_counter()
         arrays = gen_gcnsig_graph(nodes, e, CLASSES, FEATURES, seed,
                                   EDGE_MULTIPLE)
@@ -1597,7 +1623,9 @@ def smoke() -> int:
                     f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
                     f"library {r['library_ms']:.4f}, bound "
                     f"{r['bound'][0]:.4f} by {r['bound'][1]}), err "
-                    f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}")
+                    f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}"
+                    + (f" from the float64 plain version (the fp32 one "
+                       f"{r['plain_err']:.3g})" if "plain_err" in r else ""))
             log(f"hybrid       {name:11s} {direction} K={k}: "
                 f"{whole['hybrid_ms']:.4f} ms, whole-SpMM library "
                 f"{whole['library_ms']:.4f} ms, err vs fp32 reference "
@@ -1744,7 +1772,8 @@ def smoke() -> int:
             log(f"{name} {label} profile: device busy {busy_ms:.3f} ms per "
                 f"epoch, idle {100 * idle:.1f}% of the "
                 f"{res.train_time_avg * 1e3:.3f} ms epoch (profiled epoch "
-                f"{prof_ms:.3f} ms); "
+                f"{prof_ms:.3f} ms); spmm_stream_kernel "
+                f"{kernel_share(per_kernel, 'spmm_stream_kernel', busy_ms)}; "
                 + "; ".join(f"{k[:48]} {v:.3f}" for k, v in top))
 
     # ---- SDDMM and FusedMM (K4, K5, K6) ------------------------------------

@@ -1,23 +1,13 @@
-// The FusedMM pipeline's stages and the lane layout, shared by fused.cu
-// (K5) and fused_bwd.cu (K6), so that the two kernels cannot drift apart.
-// The codes are the declaration order of VectorOp, ReduceOp and ScaleOp in
-// isplib_tpu_torch/ops/semiring.py, and for the SOP 0 = none, then the
-// order of ScalarOp (the catalogue the kernels compile in).
-//
-// The layout: a warp walks one segment (<= SEG_EDGES edges of one row) and
-// gives each edge a group of L lanes; each lane holds NV vectors of W
-// consecutive features (W = 4, float4s: the wrappers pad a ragged K with
-// zero features to a multiple of 4, which makes every row 16-byte aligned),
-// lane q of a group vector t = features (t*L + q)*W + [0, W).  So
-// at K = 32 a warp works on 8 edges at once, 4 lanes an edge and two float4
-// a lane: the ROP is a 2-step shuffle within the group, the SOP and VSC one
-// instruction for the warp's 8 edges, and the groups' partial row sums
-// combine once per segment.  Each group reads its own edge's column and
-// value words, a round ahead of their use.  The gathers of D batches of
-// edges (GATHER_FLOATS floats a lane over the gathered rows) are issued
-// before the arithmetic of the first.  probe_fused.py measured these
-// choices at K = 32 (PERF.md): 4 lanes an edge against 2, 8, 16 and 32; 16
-// gathered floats against 8 and 32; the words ahead; the SOP on MUFU.
+// The FusedMM pipeline's stages, shared by fused.cu (K5) and fused_bwd.cu
+// (K6), so that the two kernels cannot drift apart; both walk the lane
+// layout of lane_layout.cuh (an edge per group of L lanes, float4 rows:
+// the wrappers pad a ragged K with zero features to a multiple of 4, which
+// makes every row 16-byte aligned), the ROP a log2(L)-step shuffle within
+// the group, the SOP (on MUFU: probe_fused.py) and VSC one instruction for
+// the warp's 32 / L edges.  The codes are the declaration order of
+// VectorOp, ReduceOp and ScaleOp in isplib_tpu_torch/ops/semiring.py, and
+// for the SOP 0 = none, then the order of ScalarOp (the catalogue the
+// kernels compile in).
 //
 // The VOP is decoded once per segment against the segment row's own
 // operand ("own": x in the forward and backward pass A, y in pass B) into
@@ -36,7 +26,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lane_layout.cuh"
+
 namespace fused {
+
+using namespace lanes;
 
 enum Vop { COPY_RHS = 0, COPY_LHS, ADD, SUB, MUL, VMAX, VMIN };
 enum Rop { NOOP = 0, DOT, NORM2 };
@@ -44,114 +38,6 @@ enum Sop { SOP_NONE = 0, SIGMOID, TDIST };
 enum Vsc { VSC_MUL = 0, VSC_MEAN, VSC_NONE };
 
 constexpr int RUNTIME = -1;  // a stage template parameter read at run time
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int THREADS = 256;  // 8 warps, one segment each
-// gathered floats in flight a lane, over every gathered row of a batch
-constexpr int GATHER_FLOATS = 16;
-
-// Batches of edges whose gathers are in flight at once, for NV vectors of W
-// floats gathered per edge.
-template <int W, int NV>
-constexpr int DEPTH = GATHER_FLOATS / (W * NV) > 0 ? GATHER_FLOATS / (W * NV)
-                                                   : 1;
-
-// ---- the lane layout ----------------------------------------------------
-
-template <int W>
-struct Vec {
-  float f[W];
-};
-
-// Lane q's NV float4s of a row, 0 past k (k % 4 == 0).
-template <int W, int L, int NV>
-struct Row {
-  static_assert(W == 4, "a lane holds float4s");
-  Vec<W> v[NV];
-
-  __device__ __forceinline__ void load(const float* __restrict__ row, int q,
-                                       int k) {
-#pragma unroll
-    for (int t = 0; t < NV; ++t) {
-      const int f = (t * L + q) * W;
-      if (f < k) {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(row + f));
-        v[t].f[0] = a.x, v[t].f[1] = a.y, v[t].f[2] = a.z, v[t].f[3] = a.w;
-      } else {
-#pragma unroll
-        for (int w = 0; w < W; ++w) v[t].f[w] = 0.f;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int t = 0; t < NV; ++t)
-#pragma unroll
-      for (int w = 0; w < W; ++w) v[t].f[w] = 0.f;
-  }
-};
-
-// Sum over the L lanes of a group (xor offsets stay within the group).
-template <int L>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// The row's sum over the warp's 32 / L groups, left in every lane, then
-// stored by group 0 (times `scale`): a row of one segment is written, a
-// split row's segments add into the row the pre-pass zeroed.
-template <int W, int L, int NV>
-__device__ __forceinline__ void store_row(Row<W, L, NV>& acc, float* row,
-                                          int lane, int k, bool whole,
-                                          float scale) {
-#pragma unroll
-  for (int t = 0; t < NV; ++t)
-#pragma unroll
-    for (int w = 0; w < W; ++w)
-#pragma unroll
-      for (int o = L; o < 32; o <<= 1)
-        acc.v[t].f[w] += __shfl_xor_sync(FULL, acc.v[t].f[w], o);
-  if (lane >= L) return;
-#pragma unroll
-  for (int t = 0; t < NV; ++t) {
-    const int f = (t * L + lane) * W;
-    if (f >= k) continue;
-#pragma unroll
-    for (int w = 0; w < W; ++w) acc.v[t].f[w] *= scale;
-    if (!whole) {
-#pragma unroll
-      for (int w = 0; w < W; ++w) atomicAdd(row + f + w, acc.v[t].f[w]);
-    } else {
-      *reinterpret_cast<float4*>(row + f) = make_float4(
-          acc.v[t].f[0], acc.v[t].f[1], acc.v[t].f[2], acc.v[t].f[3]);
-    }
-  }
-}
-
-// The column and weight (value, or 1 under VSC_NONE) of D batches of G
-// edges from `base`, one edge a group; past `last` (the segment's last
-// edge, or edge 0 for an empty segment) the word at `last`, which the
-// caller masks.  The kernels fetch the next batches' words while the
-// current ones' gathers are in flight.
-template <int G, int D>
-struct EdgeWords {
-  int c[D];
-  float w[D];
-
-  __device__ __forceinline__ void fetch(const int* __restrict__ col,
-                                        const float* __restrict__ val,
-                                        bool use_w, int base, int last,
-                                        int grp) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const int e = min(base + d * G + grp, last);
-      c[d] = __ldg(col + e);
-      w[d] = use_w ? __ldg(val + e) : 1.f;
-    }
-  }
-};
 
 // The rows rows[0, n) of out (., k) set to 0: the split rows, before the
 // segments add into them.

@@ -9,115 +9,135 @@
 // What bounds it on an H100: HBM bytes, namely col + val (8 B per edge), the
 // segment list and row pointers, and the gathered x rows (K*4 B per edge,
 // served from L2 when x fits in its 50 MB, as at the main path's widths); two
-// operations per edge and feature are far below any compute peak.  The
-// design: one warp per work item of at most SEG_EDGES edges of one row (the
-// plan cuts rows into segments, so an R-MAT hub row of 10^4+ edges spreads
-// over many warps instead of serialising the launch); the warp reads 32
-// (col, val) pairs at once, coalesced, and broadcasts them with shuffles,
-// while its lanes run over K, so each gathered x row is one coalesced read.
-// A row that is a single segment adds its sum with a plain read-modify-write;
-// the segments of a split row add with atomicAdd.  The ragged K (41) is
-// masked per lane, never padded in the caller's x.
+// operations per edge and feature are far below any compute peak, so L2
+// bandwidth and the gathers' latency bound it in practice.  The design is
+// the lane layout of lane_layout.cuh (K5's): a warp per segment of at most
+// SEG_EDGES edges of one row (the plan cuts rows into segments, so an R-MAT
+// hub row spreads over many warps), an edge per group of L lanes with
+// float4 rows (4 lanes at K = 32: 8 edges at once), each group's column
+// and value words a round ahead, the gathers of 8 edges (at K = 32) in
+// flight before their FMAs, and the groups' sums meeting by shuffles once
+// per segment.  A row that is one segment is read, added to and stored by
+// its warp alone; the segments of a split row add with atomicAdd.  Above
+// K = 128 the grid walks K tiles of 128 features (32 lanes an edge) as its
+// slow index, so one tile's slice of x is what L2 holds at a time.  x's row
+// pitch and address set the vector width (float4, float2 or float: the
+// wrapper pads an odd K to a multiple of 4); out keeps its pitch K and is
+// stored feature by feature where its rows do not take the vectors.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_layout.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps, one work item each
-constexpr unsigned FULL = 0xffffffffu;
+using namespace lanes;
 
-// NK: features per lane; a warp covers 32*NK features starting at k0.
-template <int NK>
+// gathered floats in flight a lane: 8 ran 7%, 11% and 1% faster than 16 at
+// K = 32, 41 and 602 on density-rep's residual edges (probe_fused.py), whose
+// segments of ~50 edges leave less of a round of 8 edges masked
+constexpr int GATHERED = 8;
+
+struct Args {
+  const int* rowptr;
+  const int* col;
+  const float* val;
+  const int* seg_ptr;
+  const int* seg_row;
+  const float* x;  // (num_cols, ldx)
+  float* out;      // (num_rows, k)
+  int nseg, k, ldx, vec_out;
+};
+
+// L lanes an edge, NV vectors of W floats a lane: K tiles of L*NV*W.
+template <int W, int L, int NV>
 __global__ void __launch_bounds__(THREADS)
-    spmm_stream_kernel(const int* __restrict__ rowptr,
-                       const int* __restrict__ col,
-                       const float* __restrict__ val,
-                       const int* __restrict__ seg_ptr,
-                       const int* __restrict__ seg_row,
-                       const float* __restrict__ x, float* __restrict__ out,
-                       int nseg, int k) {
+    spmm_stream_kernel(const __grid_constant__ Args a) {
+  constexpr int G = 32 / L, D = DEPTH<W, NV, GATHERED>, KT = L * NV * W;
   const int item = (blockIdx.x * THREADS + threadIdx.x) >> 5;
-  if (item >= nseg) return;  // uniform across the warp
-  const int lane = threadIdx.x & 31;
-  const int f0 = blockIdx.y * 32 * NK + lane;
-  const int e0 = seg_ptr[item], e1 = seg_ptr[item + 1], r = seg_row[item];
+  if (item >= a.nseg) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31, q = lane % L, grp = lane / L;
+  const int k0 = blockIdx.y * KT, kt = a.k - k0;
+  const int e0 = a.seg_ptr[item], e1 = a.seg_ptr[item + 1];
+  const int r = a.seg_row[item];
+  const float* x = a.x + k0;
 
-  float acc[NK];
+  Row<W, L, NV> acc;
+  acc.zero();
+  const int last = max(e1 - 1, 0);
+  EdgeWords<G, D> nxt;
+  nxt.fetch(a.col, a.val, true, e0, last, grp);
+  for (int b = e0; b < e1; b += G * D) {
+    const EdgeWords<G, D> cur = nxt;
+    Row<W, L, NV> xv[D];
 #pragma unroll
-  for (int t = 0; t < NK; ++t) acc[t] = 0.f;
-
-  for (int eb = e0; eb < e1; eb += 32) {
-    int c = 0;
-    float v = 0.f;
-    if (eb + lane < e1) {
-      c = col[eb + lane];
-      v = val[eb + lane];
-    }
-    const int m = min(32, e1 - eb);
-#pragma unroll 4
-    for (int jj = 0; jj < m; ++jj) {
-      const int cj = __shfl_sync(FULL, c, jj);
-      const float vj = __shfl_sync(FULL, v, jj);
-      const float* xr = x + static_cast<size_t>(cj) * k;
+    for (int d = 0; d < D; ++d)
+      xv[d].load(x + static_cast<size_t>(cur.c[d]) * a.ldx, q, kt);
+    if (b + G * D < e1) nxt.fetch(a.col, a.val, true, b + G * D, last, grp);
 #pragma unroll
-      for (int t = 0; t < NK; ++t) {
-        const int f = f0 + 32 * t;
-        if (f < k) acc[t] = fmaf(vj, __ldg(xr + f), acc[t]);
+    for (int d = 0; d < D; ++d) {
+      if (b + d * G + grp < e1) {
+#pragma unroll
+        for (int t = 0; t < NV; ++t)
+#pragma unroll
+          for (int w = 0; w < W; ++w)
+            acc.v[t].f[w] = fmaf(cur.w[d], xv[d].v[t].f[w], acc.v[t].f[w]);
       }
     }
   }
 
-  const bool whole = e0 == rowptr[r] && e1 == rowptr[r + 1];
-  float* o = out + static_cast<size_t>(r) * k;
-#pragma unroll
-  for (int t = 0; t < NK; ++t) {
-    const int f = f0 + 32 * t;
-    if (f < k) {
-      if (whole)
-        o[f] += acc[t];
-      else
-        atomicAdd(o + f, acc[t]);
-    }
-  }
+  const bool whole = e0 == a.rowptr[r] && e1 == a.rowptr[r + 1];
+  store_row<true>(acc, a.out + static_cast<size_t>(r) * a.k + k0, lane, kt,
+                  whole, 1.f, a.vec_out != 0);
 }
 
-template <int NK>
-int launch(const void* rowptr, const void* col, const void* val,
-           const void* seg_ptr, const void* seg_row, const void* x, void* out,
-           int nseg, int k, void* stream) {
-  const int per_block = THREADS / 32;
-  const dim3 grid((nseg + per_block - 1) / per_block,
-                  (k + 32 * NK - 1) / (32 * NK));
-  spmm_stream_kernel<NK><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(rowptr), static_cast<const int*>(col),
-      static_cast<const float*>(val), static_cast<const int*>(seg_ptr),
-      static_cast<const int*>(seg_row), static_cast<const float*>(x),
-      static_cast<float*>(out), nseg, k);
+// F floats a lane: NV = F / W vectors
+template <int W, int L, int F>
+int launch(const Args& a, cudaStream_t s) {
+  constexpr int NV = F / W, KT = L * F;
+  const dim3 grid((a.nseg + THREADS / 32 - 1) / (THREADS / 32),
+                  (a.k + KT - 1) / KT);
+  spmm_stream_kernel<W, L, NV><<<grid, THREADS, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fewest lanes (at least 4) whose 8 floats a lane cover K (4 at K <=
+// 16), else 32 lanes of 4 floats in K tiles of 128.
+template <int W>
+int launch_width(const Args& a, cudaStream_t s) {
+  if (a.k <= 16) return launch<W, 4, 4>(a, s);
+  if (a.k <= 32) return launch<W, 4, 8>(a, s);
+  if (a.k <= 64) return launch<W, 8, 8>(a, s);
+  if (a.k <= 128) return launch<W, 16, 8>(a, s);
+  return launch<W, 32, 4>(a, s);
 }
 
 }  // namespace
 
-// out (num_rows, k) fp32 += residual half of the plan times x (num_cols, k),
-// on CUDA device `device` and stream `stream`.  Returns the CUDA error of the
-// launch (0 = launched).
+// out (num_rows, k) fp32 += residual half of the plan times x (num_cols, k)
+// fp32 with row pitch ldx >= k, on CUDA device `device` and stream
+// `stream`.  Returns the CUDA error of the launch (0 = launched).
 extern "C" int spmm_stream_launch(const void* rowptr, const void* col,
                                   const void* val, const void* seg_ptr,
                                   const void* seg_row, const void* x,
-                                  void* out, int nseg, int k, int device,
-                                  void* stream) {
+                                  void* out, int nseg, int k, int ldx,
+                                  int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (k <= 32)
-    return launch<1>(rowptr, col, val, seg_ptr, seg_row, x, out, nseg, k,
-                     stream);
-  if (k <= 64)
-    return launch<2>(rowptr, col, val, seg_ptr, seg_row, x, out, nseg, k,
-                     stream);
-  if (k <= 96)
-    return launch<3>(rowptr, col, val, seg_ptr, seg_row, x, out, nseg, k,
-                     stream);
-  return launch<4>(rowptr, col, val, seg_ptr, seg_row, x, out, nseg, k,
-                   stream);
+  if (ldx < k) return static_cast<int>(cudaErrorInvalidValue);
+  if (nseg == 0 || k == 0) return 0;
+  const int w = vec_width(ldx, {x});
+  const Args a{static_cast<const int*>(rowptr),
+               static_cast<const int*>(col),
+               static_cast<const float*>(val),
+               static_cast<const int*>(seg_ptr),
+               static_cast<const int*>(seg_row),
+               static_cast<const float*>(x),
+               static_cast<float*>(out),
+               nseg, k, ldx, vec_width(k, {out}) >= w};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w == 4) return launch_width<4>(a, s);
+  if (w == 2) return launch_width<2>(a, s);
+  return launch_width<1>(a, s);
 }

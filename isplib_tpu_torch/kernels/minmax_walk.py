@@ -26,9 +26,10 @@ class Args(ctypes.Structure):
 
 
 def pitched(x: torch.Tensor) -> torch.Tensor:
-    """x as the walk reads it: an odd K as a view of a copy padded with
-    zero columns to a multiple of 4 (float4 loads; K = 41 ran 25-35%
-    faster so than with floats, probe_minmax.py), else x itself."""
+    """x as the walk reads it (and K1 and K4 on the lane layout): an odd
+    K as a view of a copy padded with zero columns to a multiple of 4
+    (float4 loads; K = 41 ran 25-35% faster so than with floats,
+    probe_minmax.py), else x itself."""
     k = x.shape[1]
     if k % 2 == 0:
         return x

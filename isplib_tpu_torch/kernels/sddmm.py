@@ -7,7 +7,9 @@ It computes ``grad_value`` of sum/mean SpMM on a tiled graph and the public
 ``sddmm``.  fp32 on both sides; only the order of the K-sum differs.  For a
 CUDA tensor the wrapper launches the kernel or raises; the plain version
 runs only for a CPU tensor (and in ``chip_smoke.py``, which holds the
-kernel against it).
+kernel against it).  An odd K reaches the kernel as views of a and b padded
+with zero columns to a multiple of 4 (``minmax_walk.pitched``), which add 0
+to every dot.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from ..ops import reference
 from ..sparse.tiling_v4mm import MinMaxPlan
 from . import build
+from .minmax_walk import pitched
 
 __all__ = ["sddmm", "sddmm_plain", "LAUNCHES"]
 
@@ -61,7 +64,7 @@ def sddmm_plain(plan: MinMaxPlan, col: torch.Tensor, a: torch.Tensor,
 @functools.cache
 def _lib():
     fn = build.load("sddmm").sddmm_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -81,9 +84,10 @@ def sddmm(plan: MinMaxPlan, col: torch.Tensor, a: torch.Tensor,
     out = torch.zeros(col.shape[0], dtype=torch.float32, device=a.device)
     if plan.nnz == 0 or a.shape[1] == 0:
         return out
+    ap, bp = pitched(a), pitched(b)  # one row pitch, set by K
     err = _lib()(plan.seg_ptr.data_ptr(), plan.seg_row.data_ptr(),
-                 col.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 plan.nseg, a.shape[1], a.device.index,
+                 col.data_ptr(), ap.data_ptr(), bp.data_ptr(), out.data_ptr(),
+                 plan.nseg, a.shape[1], ap.stride(0), a.device.index,
                  torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"sddmm launch failed: CUDA error {err}")

@@ -5,7 +5,11 @@ Counterpart of ``isplib_tpu/kernels/spmm_pallas_v4.py::_v4_kernel`` (K1).
 It adds into the output of the dense half in place, which saves a second
 (R, K) buffer and a pass to sum the halves.  For a CUDA tensor the wrapper
 launches the kernel or raises; the plain version runs only for a CPU tensor
-(and in ``chip_smoke.py``, which holds the kernel against it).
+(and in ``chip_smoke.py``, which holds the kernel against the plain function
+evaluated in float64, :func:`spmm_stream_oracle`).  An odd K reaches the
+kernel as a view of x padded with zero columns to a multiple of 4
+(``minmax_walk.pitched``), so its rows load as float4s; out keeps its own
+pitch.
 """
 
 from __future__ import annotations
@@ -17,8 +21,10 @@ import torch
 
 from ..sparse.tiling_v5 import HybridPlan
 from . import build
+from .minmax_walk import pitched
 
-__all__ = ["spmm_stream", "spmm_stream_plain", "LAUNCHES"]
+__all__ = ["spmm_stream", "spmm_stream_plain", "spmm_stream_oracle",
+           "LAUNCHES"]
 
 LAUNCHES = 0  # kernel launches since the count was last set to 0
 
@@ -50,10 +56,22 @@ def spmm_stream_plain(plan: HybridPlan, x: torch.Tensor,
                    plan.res_val[:, None] * x.index_select(0, plan.res_col))
 
 
+def spmm_stream_oracle(plan: HybridPlan, x: torch.Tensor,
+                       out: torch.Tensor) -> torch.Tensor:
+    """``out + residual edges @ x`` evaluated in float64, a new float64
+    tensor (``out`` is left as it is).  The fp32 plain version sums by
+    ``index_add_`` in a run-to-run order on a card, as the kernel's split
+    rows do; in float64 the oracle's own rounding stays out of the
+    comparison."""
+    want = out.to(torch.float64, copy=True)
+    spmm_stream_plain(plan, x.double(), want)
+    return want
+
+
 @functools.cache
 def _lib():
     fn = build.load("spmm_stream").spmm_stream_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -70,10 +88,11 @@ def spmm_stream(plan: HybridPlan, x: torch.Tensor, out: torch.Tensor) -> None:
         raise ValueError(f"spmm_stream runs on cuda or cpu, not {x.device}")
     if plan.nseg == 0 or x.shape[1] == 0:
         return
+    xp = pitched(x)
     err = _lib()(plan.res_rowptr.data_ptr(), plan.res_col.data_ptr(),
                  plan.res_val.data_ptr(), plan.seg_ptr.data_ptr(),
-                 plan.seg_row.data_ptr(), x.data_ptr(), out.data_ptr(),
-                 plan.nseg, x.shape[1], x.device.index,
+                 plan.seg_row.data_ptr(), xp.data_ptr(), out.data_ptr(),
+                 plan.nseg, x.shape[1], xp.stride(0), x.device.index,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"spmm_stream launch failed: CUDA error {err}")

@@ -21,6 +21,7 @@ from isplib_tpu_torch.kernels import (build, fused, fused_bwd, sddmm,
                                       spmm_bsr, spmm_bsr_v3, spmm_minmax,
                                       spmm_minmax_v4, spmm_rowblock,
                                       spmm_stream, spmm_v2)
+from isplib_tpu_torch.kernels.minmax_walk import pitched
 from isplib_tpu_torch.ops.semiring import (FusedOp, Reduce, ReduceOp,
                                            ScalarOp, ScaleOp, VectorOp)
 from isplib_tpu_torch.sparse.tiling import (SEG_SLOTS, build_plan_v1_arrays,
@@ -142,11 +143,28 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def offset_rows(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of t that starts ``offset`` floats into its
+    storage (0: t itself), so the kernels take narrower vectors."""
+    if not offset:
+        return t
+    flat = t.new_empty(t.numel() + offset)
+    flat[offset:] = t.flatten()
+    return flat[offset:].view(t.shape)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 32, 41, 130])
+@pytest.mark.parametrize("x_offset", [0, 1])
+@pytest.mark.parametrize("base", ["zeros", "random"])
+@pytest.mark.parametrize("k", [1, 32, 41, 130, 602])
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
-def test_kernels_match_plain_versions(cuda, k, direction):
-    """Same rounding on both sides, so only the sum order differs."""
+def test_kernels_match_plain_versions(cuda, k, direction, base, x_offset):
+    """K2 against its plain version (same rounding, only the sum order
+    differs); K1 adding into an output of zeros or of random values (a row
+    of one segment read and added to, the hub row's three segments by
+    atomics) against the plain function evaluated in float64, from x as
+    given or from a copy one float into its storage (float, not vector,
+    loads)."""
     tiled = build_tiling(hub_graph(cuda), dense_threshold=128)
     plan = tiled.fwd if direction == "fwd" else tiled.bwd
     assert plan.nb > 0 and plan.nseg > 0
@@ -157,11 +175,13 @@ def test_kernels_match_plain_versions(cuda, k, direction):
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-4 * float(
         want.abs().max())
-    got_s, want_s = torch.zeros_like(got), torch.zeros_like(want)
-    spmm_stream.spmm_stream(plan, x, got_s)
-    spmm_stream.spmm_stream_plain(plan, x, want_s)
+    out0 = (torch.zeros_like(got) if base == "zeros"
+            else torch.randn_like(got))
+    got_s = out0.clone()
+    spmm_stream.spmm_stream(plan, offset_rows(x, x_offset), got_s)
+    want_s = spmm_stream.spmm_stream_oracle(plan, x, out0)
     torch.cuda.synchronize()
-    assert float((got_s - want_s).abs().max()) <= 1e-4 * float(
+    assert float((got_s.double() - want_s).abs().max()) <= 1e-4 * float(
         want_s.abs().max())
     assert (spmm_bsr.LAUNCHES, spmm_stream.LAUNCHES) == (before[0] + 1,
                                                         before[1] + 1)
@@ -281,13 +301,20 @@ def assert_near_plain(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 32, 41, 130, 300])
-def test_sddmm_kernel_matches_plain_version(cuda, k):
-    g = hub_rows_and_cols(cuda)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("edgeless_first", [False, True])
+@pytest.mark.parametrize("k", [1, 32, 41, 130, 300, 602, 700])
+def test_sddmm_kernel_matches_plain_version(cuda, k, edgeless_first,
+                                            offset):
+    """Rows without edges (the last 50; with ``edgeless_first`` row 0 and
+    column 0 too), ragged K (padded, or float2 rows), one K tile or two
+    (K = 700, whose dots add), operands starting one float into their
+    storage (float loads)."""
+    g = hub_rows_and_cols(cuda, edgeless_first=edgeless_first)
     plan = build_tiling(g).fwd_mm
     assert plan.nsplit > 0
-    a = torch.randn(g.num_rows, k, device=cuda)
-    b = torch.randn(g.num_cols, k, device=cuda)
+    a = offset_rows(torch.randn(g.num_rows, k, device=cuda), offset)
+    b = offset_rows(torch.randn(g.num_cols, k, device=cuda), offset)
     before = sddmm.LAUNCHES
     got = sddmm.sddmm(plan, g.col, a, b)
     want = sddmm.sddmm_plain(plan, g.col, a, b)
@@ -328,13 +355,46 @@ def check_fused_kernels(g, x, y, gr, op):
                                                     before[1] + 2)
 
 
-@pytest.mark.parametrize("op", FUSED_OPS, ids=lambda o: o.vop.value)
-def test_fused_zero_padding_changes_nothing(op):
+def padded_rows(t: torch.Tensor) -> torch.Tensor:
+    """The whole rows of a view whose row pitch is wider than its K."""
+    return t.as_strided((t.shape[0], t.stride(0)), (t.stride(0), 1))
+
+
+@pytest.mark.parametrize("op", FUSED_OPS + ["spmm_stream", "sddmm"],
+                         ids=lambda o: o if isinstance(o, str)
+                         else o.vop.value)
+def test_fused_zero_padding_changes_nothing(op, plan_cpu):
     """The wrappers pad a ragged K with zero features up to a multiple of 4
     for the kernels' float4 rows and keep the first K columns: the plain
     versions on padded operands give the unpadded result there (a zero
-    feature adds 0 to t and to <g, v>; the padded columns are dropped)."""
+    feature adds 0 to t, to <g, v> and to K4's dot; the padded columns are
+    dropped).  K1 and K4 take the padded operands as views of K columns
+    (``pitched``), whose row pitch the kernels read."""
+    if op == "spmm_stream":
+        x = torch.from_numpy(np.random.default_rng(5).normal(
+            size=(plan_cpu.num_cols, 5)).astype(np.float32))
+        xp = padded_rows(pitched(x))
+        assert xp.shape[1] == 8 and torch.equal(xp[:, :5], x)
+        assert not xp[:, 5:].any()
+        outs = [torch.zeros(plan_cpu.num_rows, n) for n in (5, 8)]
+        spmm_stream.spmm_stream_plain(plan_cpu, x, outs[0])
+        spmm_stream.spmm_stream_plain(plan_cpu, xp, outs[1])
+        torch.testing.assert_close(fused.unpad(outs[1], 5), outs[0],
+                                   rtol=1e-6, atol=1e-6 * float(
+                                       outs[0].abs().max()))
+        return
     g = hub_rows_and_cols("cpu")
+    if op == "sddmm":
+        rng = np.random.default_rng(6)
+        a, b = (torch.from_numpy(rng.normal(size=(n, 5)).astype(np.float32))
+                for n in (g.num_rows, g.num_cols))
+        plan = build_tiling(g).fwd_mm
+        want = sddmm.sddmm_plain(plan, g.col, a, b)
+        got = sddmm.sddmm_plain(plan, g.col, padded_rows(pitched(a)),
+                                padded_rows(pitched(b)))
+        torch.testing.assert_close(got, want, rtol=1e-6,
+                                   atol=1e-6 * float(want.abs().max()))
+        return
     tiled = build_tiling(g)
     rng = np.random.default_rng(4)
     x, y, gr = (torch.from_numpy(rng.normal(size=(n, 5)).astype(np.float32))

@@ -16,6 +16,7 @@ from isplib_tpu.kernels.spmm_bsr2 import spmm_hybrid_v5
 from isplib_tpu.ops import xla_backend
 from isplib_tpu.sparse.tiling_v5 import build_plan_v5_arrays
 from isplib_tpu_torch.kernels.spmm_hybrid import spmm_hybrid
+from isplib_tpu_torch.kernels.spmm_stream import spmm_stream_oracle
 from isplib_tpu_torch.ops import reference
 from isplib_tpu_torch.sparse.tiling import build_tiling
 from isplib_tpu_torch.sparse.tiling_v5 import BS, SEG_EDGES
@@ -227,6 +228,33 @@ def test_hybrid_plain_matches_jax_and_oracle(hub, k, direction):
     assert got.shape == (g.num_rows, k)
     assert_close_bf16(got, want_jax)
     assert_close_bf16(got, oracle)
+
+
+@pytest.mark.parametrize("k", [32, 41])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_k1_oracle_matches_xla(hub, k, direction):
+    """The float64 oracle that K1 is held to on a card (``out`` plus the
+    plan's residual edges times x) against the JAX package's XLA SpMM of
+    the same residual edges plus the same ``out``, fp32 there (1e-5 of
+    the scale: only the rounding and sum order differ)."""
+    tg, _ = hub
+    tiled = build_tiling(tg, dense_threshold=128)
+    plan = tiled.fwd if direction == "fwd" else tiled.bwd
+    assert plan.sparse_edges > 0
+    rng = np.random.default_rng(k)
+    x = rng.normal(size=(plan.num_cols, k)).astype(np.float32)
+    out0 = rng.normal(size=(plan.num_rows, k)).astype(np.float32)
+    out = _t(out0)
+    got = spmm_stream_oracle(plan, _t(x), out)
+    assert got.dtype == torch.float64 and torch.equal(out, _t(out0))
+    rows = np.repeat(np.arange(plan.num_rows),
+                     np.diff(plan.res_rowptr.numpy()))
+    want = out0 + np.asarray(xla_backend.spmm_raw(
+        jnp.asarray(rows, jnp.int32), jnp.asarray(plan.res_col.numpy()),
+        jnp.asarray(plan.res_val.numpy()), jnp.zeros(plan.num_rows),
+        jnp.asarray(x), plan.num_rows, "sum"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
 
 
 # ---------------------------------------------------------------------------
