@@ -123,6 +123,50 @@
    and GCN through versions 3 (K9 + K8), 1 (K10) and 2 (K8) on
    density-rep, 10 epochs each, against the reference path (2e-2 for
    version 3, 1e-4 for versions 1 and 2).
+10. Interop and the training tools (``isplib_tpu_torch.interop``,
+   ``make_train_step``, checkpoints, profiling, ``findbestk``), at GCN's
+   widths (602 → 32 → 41).  Parts a-g and i run on a fresh tune cache, so
+   that ``auto_tile`` takes the occupancy rule:
+   a. ``spmm`` on a plain CUDA CSRGraph of density-rep at K = 32: K1 and K2
+      launch, ``auto_tile`` builds once (a second call builds nothing), the
+      result holds the fp32 reference under the bf16 contract (2e-2), and
+      the call is timed beside ``spmm`` on the tiled graph;
+   b. the reference's A/B: ``train_torch_baseline("gcn")``, 10 epochs on
+      density-rep, unpatched (``torch.sparse.mm`` is cuSPARSE: K1/K2 launch
+      0 times) and inside ``isplib_autotune`` from the same seed (K1/K2
+      launch; the bridge builds its graph once and ``auto_tile`` builds
+      its v5 plans once for both layers, K = 32 and 41, which fall in two
+      K buckets); losses finite and falling, the
+      final losses within 2e-2, ``torch.sparse.mm`` restored; both epoch
+      times (CUDA events) and their ratio;
+   c. a fake ``torch_sparse`` module, patched: ``matmul(SparseTensor,
+      x, reduce="max")`` on reddit-sim at K = 32 launches K3, and its output
+      and ``grad_x`` equal ``spmm(tiled, x, "max")``'s bit for bit
+      (``index_add_`` in its deterministic form for both);
+   d. ``torch.profiler`` over one cache-hit forward + backward of
+      ``torch_spmm`` and of the same direct ``spmm(tiled, x)``: the bridge
+      makes no more host<->device copies than the direct call, each count
+      from a capture that recorded every K2 launch of the call (the
+      profiler can drop device records; a capture is retried up to 10
+      times, the card spun busy around the call);
+   e. ``make_train_step``: 10 GCN steps on density-rep against
+      ``train_node_classifier(epochs=10)`` from the same init and seed, the
+      losses within 1e-4 (K1 adds split rows by atomics);
+   f. 5 steps, ``save_checkpoint`` (parameters, Adam state, the dropout
+      generator), ``restore_checkpoint`` into a fresh model and optimizer, 5
+      more steps, against the 10 uninterrupted steps of e at 1e-4; the
+      checkpoint's bytes and its save and load seconds;
+   g. ``utils.trace`` over one GCN epoch names K1's and K2's kernels, and a
+      ``Timer`` section with ``sync=`` is at least the CUDA-event time of
+      the same epoch;
+   h. ``findbestk.sweep`` on density-rep at K = 32 and 41 with phase 9's
+      caches, its table, and ``auto_tile`` at K = 41 of a fresh graph of
+      the same arrays takes the recorded winner from the plan cache
+      (building nothing);
+   i. ``torch_spmm`` on density-rep with a new value tensor on each of
+      ``CACHE_SIZE`` + 2 calls (PyG's ``GCNConv`` with ``cached=False``):
+      one graph and plan build a call, and once the cache is full its
+      entries, ``auto_tile``'s memo and the device memory stay flat.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line; every
@@ -133,6 +177,8 @@ CUDA card it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import itertools
 import json
 import logging
@@ -171,6 +217,7 @@ FUSED_KS = (FUSED_K, 41, 256)   # the embedding width, a ragged and the widest
 SDDMM_KS = (32, 41, K_WIDE)
 FUSED_STEPS = 20
 TUNE_ITERS = 10           # chain_time calls per configuration in the sweep
+SPIN_CYCLES = 4_000_000   # ~2 ms of the card's clock around a profiled call
 
 
 def log(msg: str) -> None:
@@ -1522,6 +1569,468 @@ def tuner_paths(graphs, cases, drive, train, check, gen):
     return launches
 
 
+def spun(fn):
+    """``fn()`` between two spins of the card (``torch.cuda._sleep``), so
+    that a profiled window starts and ends with the card busy."""
+    torch.cuda._sleep(SPIN_CYCLES)
+    out = fn()
+    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda.synchronize()
+    return out
+
+
+def complete_capture(call, capture, launched_by: dict, tries: int = 10,
+                     whole: bool = True):
+    """``capture()`` runs ``call`` under the profiler (:func:`spun`) and
+    returns ``(result, the kernel names it recorded, one per kernel
+    event)``; each attempt runs ``call`` unprofiled first.  torch.profiler
+    can drop device records (seen on an H100: a profile of a few kernels
+    that records none or some of them), so a capture is used only when it
+    holds the kernels this script counts itself: with ``whole``, one
+    recorded event per launch of each ``{name substring: kernel module}``
+    of ``launched_by`` (its ``LAUNCHES``), else at least one.  Returns
+    ``(result, attempts)`` of the first such capture of ``tries``."""
+    for attempt in range(1, tries + 1):
+        call()
+        torch.cuda.synchronize()
+        before = {n: m.LAUNCHES for n, m in launched_by.items()}
+        result, names = capture()
+        launched = {n: m.LAUNCHES - before[n] for n, m in launched_by.items()}
+        seen = {n: sum(n in kn for kn in names) for n in launched_by}
+        if all(launched.values()) and (seen == launched if whole else
+                                       all(seen.values())):
+            return result, attempt
+        log(f"profiler capture {attempt}: recorded {seen} of the launches "
+            f"{launched}; capturing again")
+    raise AssertionError(f"no complete profiler capture in {tries} tries")
+
+
+def memcpy_count(fn, launched_by: dict):
+    """``((copies, counts by name), attempts)``: the host<->device copies
+    (``Memcpy DtoH`` / ``HtoD`` events) of one call of ``fn`` under
+    ``torch.profiler``, from a capture complete for ``launched_by``
+    (:func:`complete_capture`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def capture():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            spun(fn)
+        copies, kernels = {}, []
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "Memcpy DtoH" in ev.name or "Memcpy HtoD" in ev.name:
+                copies[ev.name] = copies.get(ev.name, 0) + 1
+            else:
+                kernels.append(ev.name)
+        return (sum(copies.values()), copies), kernels
+
+    return complete_capture(fn, capture, launched_by)
+
+
+def interop_paths(graphs, drive, dataset, gen):
+    """Phase 10: the torch/PyG bridge and the training tools on the
+    density-representative graph (both K1 and K2 carry edges there) and
+    reddit-sim, at GCN's widths.  Parts a-g and i run on a fresh tune
+    cache, so that ``auto_tile`` takes the occupancy rule (phase 9 recorded
+    winners for these graphs); part h on phase 9's caches."""
+    import types
+
+    from isplib_tpu_torch import (GCN, findbestk, graph_from_arrays,
+                                  make_train_step, spmm,
+                                  train_node_classifier)
+    from isplib_tpu_torch.interop import (clear_cache, iSpLibPlugin,
+                                          isplib_autotune, torch_bridge,
+                                          torch_spmm)
+    from isplib_tpu_torch.interop.torch_baseline import train_torch_baseline
+    from isplib_tpu_torch.kernels import spmm_bsr, spmm_stream
+    from isplib_tpu_torch.sparse import tiling
+    from isplib_tpu_torch.train import restore_checkpoint, save_checkpoint
+    from isplib_tpu_torch.tune import autotune
+    from isplib_tpu_torch.utils import Timer, trace
+
+    t_phase = time.perf_counter()
+    arrays_d, g_d, tiled_d = graphs["density-rep"]
+    arrays_r, g_r, tiled_r = graphs["reddit-sim"]
+    scratch = tempfile.mkdtemp(prefix="isplib_tpu_torch_phase10_")
+    saved_tune = autotune._CACHE_PATH, autotune._memory_cache
+    autotune._CACHE_PATH = os.path.join(scratch, "tune.json")
+    autotune._memory_cache = None
+
+    # every plan build of auto_tile and every graph build of the bridge,
+    # with its seconds and device bytes
+    builds, bridge_builds = [], []
+    build_tiling, from_scipy = tiling.build_tiling, torch_bridge.from_scipy
+
+    def counted_tiling(g, **kw):
+        t0 = time.perf_counter()
+        out = build_tiling(g, **kw)
+        torch.cuda.synchronize()
+        builds.append(dict(k=kw.get("k"), nnz=g.nnz,
+                           s=time.perf_counter() - t0,
+                           mib=sum(plan_bytes(getattr(out, f)) for f in (
+                               "fwd", "bwd", "fwd_mm", "bwd_mm")) / 2**20,
+                           cfg={f: v for f, v in kw.items()
+                                if f not in ("k", "cache_tag")}))
+        return out
+
+    def counted_bridge(*a, **kw):
+        t0 = time.perf_counter()
+        out = from_scipy(*a, **kw)
+        torch.cuda.synchronize()
+        bridge_builds.append(time.perf_counter() - t0)
+        return out
+
+    tiling.build_tiling = counted_tiling
+    torch_bridge.from_scipy = counted_bridge
+    x_d = torch.from_numpy(arrays_d["x"]).cuda()
+    y_d = torch.from_numpy(arrays_d["y"]).cuda()
+    mask_d = torch.from_numpy(arrays_d["train_mask"]).cuda()
+    try:
+        # ---- a. pt.spmm on a plain CUDA CSRGraph tiles it and runs K1+K2
+        fresh = graph_from_arrays(arrays_d, "cuda")
+        x = torch.randn(fresh.num_cols, 32, device="cuda", generator=gen)
+        out, _ = drive("plain CSRGraph spmm path (density-rep, K=32)",
+                       ("spmm_bsr", "spmm_stream"), lambda: spmm(fresh, x))
+        spmm(fresh, x)
+        if len(builds) != 1:
+            raise AssertionError(f"auto_tile built {len(builds)} times over "
+                                 "two calls on one graph")
+        ref = spmm(fresh, x, backend="reference")
+        scale = float(ref.abs().max())
+        err = float((out - ref).abs().max())
+        if not (torch.isfinite(out).all() and torch.allclose(
+                out, ref, rtol=2e-2, atol=2e-2 * scale)):
+            raise AssertionError(f"spmm of a plain CSRGraph: max err {err} "
+                                 f"(max |ref| {scale})")
+        tiled_f = tiling.auto_tile(fresh, 32)
+        ms_csr = cuda_ms(lambda: spmm(fresh, x))
+        ms_tiled = cuda_ms(lambda: spmm(tiled_f, x))
+        b = builds[0]
+        log(f"interop a: spmm(CSRGraph density-rep, K=32) tiled once by "
+            f"auto_tile (version 5 {b['cfg']}, {b['s']:.2f}s, "
+            f"{b['mib']:.1f} MiB of plans), a second call built nothing; "
+            f"err {err:.3g} vs the fp32 reference (max |ref| {scale:.3g}, "
+            f"bf16 contract 2e-2); {ms_csr:.4f} ms a call against "
+            f"{ms_tiled:.4f} ms for spmm(tiled) on the same plans")
+        del fresh, tiled_f, out, ref
+
+        # ---- b. the reference's A/B: pt1 GCN, cuSPARSE against the patch
+        ds = dataset("density-rep", g_d)
+        orig_mm = torch.sparse.mm
+
+        def baseline():
+            return train_torch_baseline("gcn", ds, epochs=SHORT_EPOCHS,
+                                        hidden=32, device="cuda")
+
+        plain, plain_launches = drive("pt1 GCN path, unpatched", (),
+                                      baseline)
+        if plain_launches["spmm_bsr"] or plain_launches["spmm_stream"]:
+            raise AssertionError("the unpatched pt1 run launched K1/K2")
+        builds.clear()
+        patched, _ = drive(
+            "pt1 GCN path under isplib_autotune", ("spmm_bsr", "spmm_stream"),
+            isplib_autotune(baseline))
+        if torch.sparse.mm is not orig_mm or iSpLibPlugin.backup:
+            raise AssertionError("torch.sparse.mm was not restored")
+        if len(bridge_builds) != 1:
+            raise AssertionError(f"the bridge built {len(bridge_builds)} "
+                                 "graphs of one adjacency")
+        clear_cache()
+        for label, res in (("unpatched", plain), ("patched", patched)):
+            if not (np.all(np.isfinite(res.losses))
+                    and res.losses[-1] < res.losses[0]):
+                raise AssertionError(f"pt1 GCN {label}: losses {res.losses}")
+        l_plain, l_patched = plain.losses[-1], patched.losses[-1]
+        if not abs(l_patched - l_plain) <= 2e-2 * abs(l_plain):
+            raise AssertionError(f"pt1 GCN: patched final loss {l_patched} "
+                                 f"vs unpatched {l_plain} (rtol 2e-2)")
+        # the v5 plans do not depend on k: one build serves both layers
+        if [b["k"] for b in builds] != [32]:
+            raise AssertionError(f"the patched GCN tiled {builds}")
+        for label, res in (("unpatched (cuSPARSE)", plain),
+                           ("patched (K1+K2)", patched)):
+            log(f"density-rep pt1 GCN(602-32-41) {label}, {SHORT_EPOCHS} "
+                f"epochs:\n{res.table()}")
+        log(f"interop b: pt1 GCN epoch {patched.train_time_avg * 1e3:.3f} ms "
+            f"patched against {plain.train_time_avg * 1e3:.3f} ms unpatched "
+            f"(ratio {patched.train_time_avg / plain.train_time_avg:.3f}); "
+            f"final loss {l_patched:.6f} vs {l_plain:.6f}; the bridge built "
+            f"its graph once in {bridge_builds[-1]:.2f}s; auto_tile built "
+            + "; ".join(f"K={b['k']} version 5 {b['cfg']} {b['s']:.2f}s "
+                        f"{b['mib']:.1f} MiB" for b in builds)
+            + " once for both layers (K = 32 and 41)")
+
+        # ---- c. a fake torch_sparse: matmul(adj, x, reduce="max") runs K3
+        n = g_r.nnz
+
+        class SparseTensor:
+            """``torch_sparse.SparseTensor`` as the bridge reads it."""
+
+            def __init__(self):
+                self.parts = (g_r.rowptr.long(), g_r.col[:n].long(),
+                              g_r.value[:n])
+
+            def csr(self):
+                return self.parts
+
+            def sparse_sizes(self):
+                return g_r.shape
+
+        def unpatched_matmul(*a, **kw):
+            raise AssertionError("the unpatched torch_sparse.matmul ran")
+
+        fake = types.ModuleType("torch_sparse")
+        fake.matmul, fake.SparseTensor = unpatched_matmul, SparseTensor
+        sys.modules["torch_sparse"] = fake
+        adj = SparseTensor()
+        xv = torch.randn(g_r.num_cols, 32, device="cuda", generator=gen)
+        w = torch.randn(g_r.num_rows, 32, device="cuda", generator=gen)
+        # index_add_'s deterministic form, so both gradients sum in one order
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        iSpLibPlugin.patch_pyg()
+        try:
+            xb = xv.clone().requires_grad_(True)
+            got, _ = drive("patched torch_sparse.matmul max path (reddit-sim)",
+                           ("spmm_minmax_v4",),
+                           lambda: fake.matmul(adj, xb, reduce="max"))
+            (got * w).sum().backward()
+            xt = xv.clone().requires_grad_(True)
+            want = spmm(tiled_r, xt, "max")
+            (want * w).sum().backward()
+        finally:
+            iSpLibPlugin.unpatch_pyg()
+            torch.use_deterministic_algorithms(False)
+            sys.modules.pop("torch_sparse")
+        if fake.matmul is not unpatched_matmul:
+            raise AssertionError("torch_sparse.matmul was not restored")
+        if not (torch.equal(got, want) and torch.equal(xb.grad, xt.grad)):
+            raise AssertionError("torch_sparse.matmul max differs from "
+                                 "spmm(tiled, x, 'max')")
+        log("interop c: patched torch_sparse.matmul(SparseTensor reddit-sim, "
+            "x, reduce='max') at K=32: out and grad_x bit for bit equal to "
+            "spmm(tiled, x, 'max')")
+
+        # ---- d. no host copy per call: a cache-hit forward + backward of
+        # torch_spmm against the same direct spmm(tiled, x)
+        bridged, _ = torch_bridge._graph_cache[next(iter(
+            torch_bridge._graph_cache))]
+        tiled_b = tiling.auto_tile(bridged, 32)
+        n_graphs = len(torch_bridge._graph_cache)
+
+        def via_bridge():
+            xq = xv.clone().requires_grad_(True)
+            (torch_spmm(adj, xq) * w).sum().backward()
+
+        def direct():
+            xq = xv.clone().requires_grad_(True)
+            (spmm(tiled_b, xq) * w).sum().backward()
+
+        k2 = {"bsrwalk::walk_kernel": spmm_bsr}
+        (c_bridge, n_bridge), t_bridge = memcpy_count(via_bridge, k2)
+        (c_direct, n_direct), t_direct = memcpy_count(direct, k2)
+        if len(torch_bridge._graph_cache) != n_graphs or len(builds) != 2:
+            raise AssertionError("the cache-hit call built a graph or plan")
+        if c_bridge > c_direct:
+            raise AssertionError(f"the bridge copies {n_bridge} against the "
+                                 f"direct call's {n_direct}")
+        ms_bridge = cuda_ms(lambda: torch_spmm(adj, xv))
+        ms_direct = cuda_ms(lambda: spmm(tiled_b, xv))
+        log(f"interop d: host<->device copies in one forward + backward: "
+            f"torch_spmm (cache hit) {c_bridge} {n_bridge}, direct "
+            f"spmm(tiled, x) {c_direct} {n_direct} (complete captures, "
+            f"attempts {t_bridge} and {t_direct}); forward "
+            f"{ms_bridge:.4f} ms through the bridge against "
+            f"{ms_direct:.4f} ms direct (reddit-sim, K=32, sum)")
+        del bridged, tiled_b, got, want, xb, xt
+        clear_cache()
+
+        # ---- e. make_train_step: 10 steps against train_node_classifier
+        def gcn():
+            return GCN(FEATURES, hidden=32, num_classes=CLASSES, seed=0)
+
+        def adam(m):
+            return torch.optim.Adam(m.parameters(), lr=0.01,
+                                    weight_decay=5e-4)
+
+        res = train_node_classifier(gcn(), dataset("density-rep"),
+                                    epochs=SHORT_EPOCHS, seed=0)
+
+        def stepped(count):
+            m = gcn()
+            opt = adam(m)
+            step = make_train_step(m, opt, tiled_d)
+            g = torch.Generator(device="cuda").manual_seed(0)
+            return m, opt, step, g, [step(x_d, y_d, mask_d, g)[0]
+                                     for _ in range(count)]
+
+        (_, _, _, _, losses), _ = drive(
+            "make_train_step GCN path (density-rep)",
+            ("spmm_bsr", "spmm_stream"), lambda: stepped(SHORT_EPOCHS))
+        steps = torch.stack(losses).tolist()
+        if not np.allclose(steps, res.losses, rtol=1e-4, atol=0):
+            raise AssertionError(f"make_train_step losses {steps} vs "
+                                 f"train_node_classifier's {res.losses}")
+        log(f"interop e: make_train_step, {SHORT_EPOCHS} steps, losses "
+            f"{steps[0]:.6f} -> {steps[-1]:.6f}, within 1e-4 of "
+            f"train_node_classifier's {res.losses[0]:.6f} -> "
+            f"{res.losses[-1]:.6f}")
+
+        # ---- f. checkpoints: 5 steps, save, restore, 5 more
+        half = SHORT_EPOCHS // 2
+        m, opt, _, g, first = stepped(half)
+        ckdir = os.path.join(scratch, "ckpt")
+        t0 = time.perf_counter()
+        save_checkpoint(ckdir, half, m.state_dict(), opt.state_dict(),
+                        extra={"generator": g.get_state()})
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(ckdir, f"step_{half}.pt"))
+        t0 = time.perf_counter()
+        ck = restore_checkpoint(ckdir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        m2 = gcn()
+        opt2 = adam(m2)
+        m2.load_state_dict(ck["params"])
+        opt2.load_state_dict(ck["opt_state"])
+        g2 = torch.Generator(device="cuda")
+        g2.set_state(ck["extra"]["generator"].cpu())
+        step2 = make_train_step(m2, opt2, tiled_d)
+        resumed = torch.stack(first + [step2(x_d, y_d, mask_d, g2)[0]
+                                       for _ in range(half)]).tolist()
+        if not np.allclose(resumed, steps, rtol=1e-4, atol=0):
+            raise AssertionError(f"resumed losses {resumed} vs "
+                                 f"uninterrupted {steps}")
+        log(f"interop f: checkpoint of GCN + Adam after {half} steps: "
+            f"{nbytes} bytes, saved in {save_s:.4f}s, loaded in "
+            f"{load_s:.4f}s; {half} more steps from it end at "
+            f"{resumed[-1]:.6f} against {steps[-1]:.6f} uninterrupted")
+        del m, opt, m2, opt2, ck
+
+        # ---- g. profiling: trace and Timer over one GCN epoch
+        m = gcn()
+        step = make_train_step(m, adam(m), tiled_d)
+        tdir = os.path.join(scratch, "trace")
+
+        def epoch():
+            step(x_d, y_d, mask_d)
+
+        def traced_epoch():
+            shutil.rmtree(tdir, ignore_errors=True)
+            with trace(tdir):
+                spun(epoch)
+            traced, = os.listdir(tdir)
+            with open(os.path.join(tdir, traced)) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [ev.get("name", "") for ev in events
+                       if isinstance(ev, dict) and ev.get("cat") == "kernel"]
+            return (len(events), len(set(kernels))), kernels
+
+        # the trace names K1's and K2's kernels
+        (n_events, n_kernels), t_trace = complete_capture(
+            epoch, traced_epoch, {"spmm_stream_kernel": spmm_stream,
+                                  "bsrwalk::walk_kernel": spmm_bsr},
+            whole=False)
+        timer = Timer()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with timer.section("epoch", sync=x_d):
+            start.record()
+            step(x_d, y_d, mask_d)
+            end.record()
+        event_s = start.elapsed_time(end) / 1e3
+        if not timer.sections["epoch"] >= event_s:
+            raise AssertionError(f"Timer {timer.sections['epoch']} s < CUDA "
+                                 f"events {event_s} s")
+        log(f"interop g: trace of one GCN epoch ({n_events} events, "
+            f"{n_kernels} kernel names; attempt {t_trace}) names "
+            f"spmm_stream_kernel and bsrwalk::walk_kernel; Timer section "
+            f"{timer.sections['epoch'] * 1e3:.3f} ms >= CUDA events "
+            f"{event_s * 1e3:.3f} ms")
+        del m, step
+
+        # ---- i. a new value tensor on every call (PyG's GCNConv with
+        # cached=False): the bridge's cache and the device memory stay flat
+        clear_cache()
+        builds.clear()
+        n = g_d.nnz
+        crow, col = g_d.rowptr.long(), g_d.col[:n].long()
+        xk = torch.randn(g_d.num_cols, 32, device="cuda", generator=gen)
+        full = torch_bridge.CACHE_SIZE
+        held, t_calls = [], []
+        for i in range(full + 2):
+            value = g_d.value[:n] * (1.0 + 0.01 * i)
+            src = torch.sparse_csr_tensor(crow, col, value, size=g_d.shape)
+            t0 = time.perf_counter()
+            out = torch_spmm(src, xk)
+            torch.cuda.synchronize()
+            t_calls.append(time.perf_counter() - t0)
+            if not torch.isfinite(out).all():
+                raise AssertionError("the bridge gave non-finite values")
+            del src, value, out
+            gc.collect()
+            held.append((len(torch_bridge._graph_cache),
+                         len(tiling._AUTO_TILED),
+                         torch.cuda.memory_allocated()))
+        if len(builds) != full + 2:
+            raise AssertionError(f"{len(builds)} plan builds over "
+                                 f"{full + 2} adjacencies")
+        entries, memos, mem = held[full - 1]
+        for e, t, b in held[full:]:
+            if (e, t) != (entries, memos) or abs(b - mem) > 2**20:
+                raise AssertionError(f"the bridge's cache grew: {held}")
+        log(f"interop i: a new value tensor on each of {full + 2} calls "
+            f"(density-rep, K=32): the bridge's cache holds {entries} "
+            f"graphs, auto_tile's memo {memos}, device memory "
+            + ", ".join(f"{b / 2**20:.1f}" for _, _, b in held)
+            + f" MiB after each call (flat from call {full}); each call "
+            f"builds a graph and its plans: "
+            + ", ".join(f"{t:.2f}" for t in t_calls) + " s")
+        clear_cache()
+    finally:
+        tiling.build_tiling, torch_bridge.from_scipy = (build_tiling,
+                                                        from_scipy)
+        autotune._CACHE_PATH, autotune._memory_cache = saved_tune
+        clear_cache()
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    # ---- h. findbestk on density-rep at K = 32, 41 (phase 9's caches)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(sys.stdout):
+        rows = findbestk.sweep(g_d, arrays_d, (32, 41), iters=TUNE_ITERS,
+                               verbose=True)
+    sweep_s = time.perf_counter() - t0
+    log(f"findbestk density-rep --ks 32,41 ({sweep_s:.1f}s):\n"
+        + findbestk.table(rows))
+    best = dict(rows)[41]
+    fresh = graph_from_arrays(arrays_d, "cuda")
+
+    def no_build(*a, **kw):
+        raise AssertionError("auto_tile built a plan the tuner persisted")
+
+    saved = tiling._build_fn, tiling.build_minmax_plan
+    tiling._build_fn = tiling.build_minmax_plan = no_build
+    try:
+        t0 = time.perf_counter()
+        loaded = tiling.auto_tile(fresh, k=41)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        tiling._build_fn, tiling.build_minmax_plan = saved
+    if autotune.lookup(autotune.signature_of(fresh, 41)) != best:
+        raise AssertionError("the tune cache lost the K=41 winner")
+    if (best["backend"] == "reference") != (loaded is fresh):
+        raise AssertionError(f"auto_tile at K=41 did not take {best}")
+    log(f"interop h: auto_tile(K=41) of a fresh density-rep graph took the "
+        f"recorded winner ({best['backend']} "
+        + " ".join(f"{f}={v}" for f, v in best.items()
+                   if f not in ("backend", "seconds", "edges_per_s", "fill"))
+        + f") from the plan cache in {load_s:.2f}s")
+    del fresh, loaded
+    log(f"phase 10 (interop and the training tools): "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+
 def graph_specs() -> list[tuple[str, int, int, int]]:
     """(name, nodes, edges, seed) of the two GCN-signal graphs, at
     bench.py's sizes: reddit at scale 0.05, and its density-representative
@@ -1717,9 +2226,13 @@ def smoke() -> int:
             if tiled_of is not None:
                 ran = tiled_of(name)
             model.eval()
+            # a plain CSRGraph is the reference only under that backend:
+            # "auto" would tile it
             with torch.no_grad():
                 l_kernel = float(_loss_fn(model(ran, x), y, mask, loss))
-                l_ref = float(_loss_fn(model(ref, x), y, mask, loss))
+                l_ref = float(_loss_fn(
+                    model(ref, x, backend=("reference" if graph_of is None
+                                           else None)), y, mask, loss))
             log(f"{name} {label}: trained loss through the kernels "
                 f"{l_kernel:.7f}, "
                 + (f"reference path {l_ref:.7f}" if graph_of is None else
@@ -1788,6 +2301,9 @@ def smoke() -> int:
 
     # ---- the tuner and plan generations 1-3 (K9, K10) ----------------------
     version_launches = tuner_paths(graphs, cases, drive, train, check, gen)
+
+    # ---- interop and the training tools (K1/K2 through the bridge, K3) ----
+    interop_paths(graphs, drive, dataset, gen)
 
     # ---- the kernel table, each kernel at K = 32 forward on the graph whose
     # edges it carries: the dense blocks of reddit-sim, the residual edges

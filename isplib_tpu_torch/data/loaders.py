@@ -10,6 +10,11 @@ stand-in (``rmat_dataset``).
 The stand-in's seed is ``zlib.crc32(name) % 2**31``.  The JAX package uses
 ``hash(name) % 2**31``, which Python randomises per process, so its
 stand-ins differ from run to run; the port's do not.
+
+Every loader takes ``tiling``, a dict of ``build_tiling`` keys (e.g.
+``dict(version=2, k=41)``) as ``from_edge_index`` takes it: the graph is
+then a TiledGraph whose plans are built from the host arrays.  The JAX
+package's tuple form ``(rb, ct, eb)`` raises.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ def _npz_path(name: str) -> str:
     return os.path.join(DATA_DIR, f"{name}.npz")
 
 
-def _load_npz(name: str, device) -> NodeDataset:
+def _load_npz(name: str, device, tiling) -> NodeDataset:
     with np.load(_npz_path(name)) as z:
         edge_index = z["edge_index"]
         x = z["x"].astype(np.float32)
@@ -59,7 +64,7 @@ def _load_npz(name: str, device) -> NodeDataset:
         masks = [z[m].astype(bool)
                  for m in ("train_mask", "val_mask", "test_mask")]
     graph = from_edge_index(edge_index, num_nodes=x.shape[0],
-                            edge_multiple=4096, device=device)
+                            edge_multiple=4096, device=device, tiling=tiling)
     return NodeDataset(name, graph, x, y, *masks,
                        num_classes=int(y.max()) + 1)
 
@@ -82,17 +87,19 @@ def standin_seed(name: str) -> int:
     return zlib.crc32(name.encode()) % (2**31)
 
 
-def _synthetic_standin(name: str, scale: float, device) -> NodeDataset:
+def _synthetic_standin(name: str, scale: float, device,
+                       tiling) -> NodeDataset:
     n, e, f, c = DATASET_STATS[name]
     return rmat_dataset(num_nodes=int(n * scale), num_edges=int(e * scale),
                         num_features=f, num_classes=c, name=f"{name}-sim",
                         seed=standin_seed(name), undirected=False,
-                        device=device)
+                        device=device, tiling=tiling)
 
 
 def load_mtx(path: str, labels_npz: str | None = None,
              name: str | None = None,
-             device: str | torch.device = "cuda") -> NodeDataset:
+             device: str | torch.device = "cuda",
+             tiling: dict | None = None) -> NodeDataset:
     """A MatrixMarket adjacency plus optional labels as a NodeDataset.
 
     Features are one-hot node ids up to 4096 nodes (they take O(n²)
@@ -102,7 +109,7 @@ def load_mtx(path: str, labels_npz: str | None = None,
     import scipy.io
 
     mat = scipy.io.mmread(path).tocoo()
-    graph = from_scipy(mat, edge_multiple=128, device=device)
+    graph = from_scipy(mat, edge_multiple=128, device=device, tiling=tiling)
     n = graph.num_rows
     if labels_npz is not None:
         with np.load(labels_npz) as z:
@@ -122,21 +129,22 @@ def load_mtx(path: str, labels_npz: str | None = None,
 
 
 def load(name: str, allow_synthetic: bool = True, scale: float = 1.0,
-         device: str | torch.device = "cuda") -> NodeDataset:
+         device: str | torch.device = "cuda",
+         tiling: dict | None = None) -> NodeDataset:
     """One of the six reference datasets (``<name>-sim`` forces the
     stand-in; ``scale`` shrinks stand-ins), or a checked-in real graph."""
     if name in REAL_BUILTIN:
         return load_mtx(os.path.join(_REAL_DIR, f"{name}.mtx"),
                         labels_npz=os.path.join(_REAL_DIR,
                                                 f"{name}_labels.npz"),
-                        name=name, device=device)
+                        name=name, device=device, tiling=tiling)
     force_sim = name.endswith("-sim")
     base = name[:-4] if force_sim else name
     if base not in DATASET_STATS:
         raise KeyError(f"unknown dataset {name!r}; known: "
                        f"{sorted(DATASET_STATS) + list(REAL_BUILTIN)}")
     if not force_sim and os.path.exists(_npz_path(base)):
-        return _load_npz(base, device)
+        return _load_npz(base, device, tiling)
     if not (allow_synthetic or force_sim):
         raise FileNotFoundError(
             f"{_npz_path(base)} not found; pass allow_synthetic=True for a "
@@ -144,4 +152,4 @@ def load(name: str, allow_synthetic: bool = True, scale: float = 1.0,
     if not force_sim:
         print(f"[isplib_tpu_torch.data] {base}: no exported .npz at "
               f"{_npz_path(base)}; using the size-matched synthetic stand-in")
-    return _synthetic_standin(base, scale, device)
+    return _synthetic_standin(base, scale, device, tiling)

@@ -72,15 +72,18 @@ def rmat_dataset(
     edge_multiple: int = 4096,
     undirected: bool = True,
     device: str | torch.device = "cuda",
+    tiling: dict | None = None,
 ) -> NodeDataset:
     """Size-matched benchmark dataset: R-MAT structure with class-correlated
-    features (class centroids plus noise of scale 2)."""
+    features (class centroids plus noise of scale 2); ``tiling`` as in
+    ``from_edge_index``."""
     rng = np.random.default_rng(seed + 1)
     ei = rmat_edges(num_nodes, num_edges, seed)
     if undirected:
         ei = np.concatenate([ei, ei[::-1]], axis=1)
     graph = from_edge_index(ei, num_nodes=num_nodes,
-                            edge_multiple=edge_multiple, device=device)
+                            edge_multiple=edge_multiple, device=device,
+                            tiling=tiling)
     y = rng.integers(0, num_classes, size=num_nodes).astype(np.int32)
     centers = rng.normal(size=(num_classes, num_features)).astype(np.float32)
     x = centers[y] + rng.normal(

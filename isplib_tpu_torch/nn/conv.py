@@ -109,9 +109,10 @@ class GCNConv(nn.Module):
             _glorot_uniform(in_features, out_features, gen).to(dev))
         self.bias = nn.Parameter(torch.zeros(out_features, device=dev))
 
-    def forward(self, graph, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, graph, x: torch.Tensor,
+                backend: Optional[str] = None) -> torch.Tensor:
         # dense transform first: the SpMM then runs at the (narrower) output width
-        return spmm(graph, x @ self.kernel, reduce="sum") + self.bias
+        return spmm(graph, x @ self.kernel, "sum", backend) + self.bias
 
 
 class SAGEConv(nn.Module):
@@ -131,8 +132,9 @@ class SAGEConv(nn.Module):
         self.lin_l = Dense(in_features, out_features, True, device, gen)
         self.lin_r = Dense(in_features, out_features, False, device, gen)
 
-    def forward(self, graph, x: torch.Tensor) -> torch.Tensor:
-        agg = spmm(graph, x, reduce=self.aggr)
+    def forward(self, graph, x: torch.Tensor,
+                backend: Optional[str] = None) -> torch.Tensor:
+        agg = spmm(graph, x, self.aggr, backend)
         return self.lin_l(agg) + self.lin_r(x)
 
 
@@ -150,6 +152,7 @@ class GINConv(nn.Module):
         else:
             self.eps = float(eps)
 
-    def forward(self, graph, x: torch.Tensor) -> torch.Tensor:
-        agg = spmm(graph, x, reduce="sum")
+    def forward(self, graph, x: torch.Tensor,
+                backend: Optional[str] = None) -> torch.Tensor:
+        agg = spmm(graph, x, "sum", backend)
         return self.mlp((1.0 + self.eps) * x + agg)

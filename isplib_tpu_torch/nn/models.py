@@ -4,8 +4,11 @@
 Unlike flax, a torch module needs its input width up front.  Weights are
 drawn from ``seed`` on the CPU, so every device gets the same model.  Every
 model takes ``generator`` (on x's device) for its dropout mask in training
-mode; without one the global generator draws it.  The graph's type picks
-the SpMM path: a TiledGraph runs the kernels, a CSRGraph the reference.
+mode; without one the global generator draws it.  The graph and
+``backend`` (passed to every SpMM, ``ops.spmm.spmm``) pick the SpMM path:
+a TiledGraph runs the kernels, a CSRGraph the reference unless
+``auto_tile`` tiles it (a large one on CUDA); ``backend="reference"`` runs
+the reference on every graph.
 """
 
 from __future__ import annotations
@@ -43,10 +46,11 @@ class GCN(nn.Module):
         self.conv2 = GCNConv(hidden, num_classes, device, gen)
 
     def forward(self, graph, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = F.relu(self.conv1(graph, x))
+                generator: Optional[torch.Generator] = None,
+                backend: Optional[str] = None) -> torch.Tensor:
+        h = F.relu(self.conv1(graph, x, backend))
         h = _dropout(h, self.dropout_rate, self.training, generator)
-        return F.log_softmax(self.conv2(graph, h), dim=-1)
+        return F.log_softmax(self.conv2(graph, h, backend), dim=-1)
 
 
 class GraphSAGE(nn.Module):
@@ -64,10 +68,11 @@ class GraphSAGE(nn.Module):
         self.conv2 = SAGEConv(hidden, num_classes, aggr, device, gen)
 
     def forward(self, graph, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = F.relu(self.conv1(graph, x))
+                generator: Optional[torch.Generator] = None,
+                backend: Optional[str] = None) -> torch.Tensor:
+        h = F.relu(self.conv1(graph, x, backend))
         h = _dropout(h, self.dropout_rate, self.training, generator)
-        return F.log_softmax(self.conv2(graph, h), dim=-1)
+        return F.log_softmax(self.conv2(graph, h, backend), dim=-1)
 
 
 class _GINMLP(nn.Module):
@@ -101,9 +106,10 @@ class GIN(nn.Module):
         self.fc2 = Dense(hidden, num_classes, True, device, gen)
 
     def forward(self, graph, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.bn1(self.conv1(graph, x))
-        h = self.bn2(self.conv2(graph, h))
+                generator: Optional[torch.Generator] = None,
+                backend: Optional[str] = None) -> torch.Tensor:
+        h = self.bn1(self.conv1(graph, x, backend))
+        h = self.bn2(self.conv2(graph, h, backend))
         return self.fc2(F.relu(self.fc1(h)))
 
 

@@ -15,7 +15,9 @@ without one (``bwd`` None, as the JAX package falls back to XLA, never to
 the forward plan); max and min run the
 max/min kernel (K3) over the ``fwd_mm`` plan, which also returns the
 winning edge ids.  A plain CSRGraph runs the reference path on any device,
-as the JAX package runs XLA there.  ``grad_v`` of sum/mean (an SDDMM) runs
+as the JAX package runs XLA there; the public ``spmm`` first hands a
+CSRGraph with constant values to ``auto_tile`` under the ``"auto"``
+backend, so a large one on CUDA reaches the kernels.  ``grad_v`` of sum/mean (an SDDMM) runs
 the SDDMM kernel (K4) over the ``fwd_mm`` work list on a TiledGraph and the
 plain formula on a CSRGraph; it is computed only when the edge values
 require a gradient.  Pad edges never get a gradient.
@@ -32,13 +34,31 @@ import torch
 
 from ..kernels import sddmm as k4
 from ..kernels import spmm_hybrid, spmm_minmax_v4
-from ..sparse.tiling import TiledGraph, base_graph
+from ..sparse.graph import CSRGraph
+from ..sparse.tiling import TiledGraph, auto_tile, base_graph
 from . import reference
 from .semiring import Reduce
 
-__all__ = ["SpMM", "spmm", "SDDMM", "sddmm"]
+__all__ = ["SpMM", "spmm", "SDDMM", "sddmm", "set_default_backend"]
 
 _BACKENDS = ("auto", "reference")
+_default_backend = "auto"
+
+
+def _check_backend(name: str) -> None:
+    if name not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got "
+                         f"{name!r}")
+
+
+def set_default_backend(name: str) -> str:
+    """Set the process-wide backend that ``spmm(..., backend=None)`` takes
+    (``"auto"`` until set): ``"auto"`` or ``"reference"``.  Returns the
+    previous one.  The JAX package's names ``xla`` and ``pallas`` raise."""
+    global _default_backend
+    _check_backend(name)
+    previous, _default_backend = _default_backend, name
+    return previous
 
 
 class SpMM(torch.autograd.Function):
@@ -125,7 +145,7 @@ class SpMM(torch.autograd.Function):
 
 
 def spmm(graph, x: torch.Tensor, reduce: str | Reduce = "sum",
-         backend: str = "auto") -> torch.Tensor:
+         backend: str | None = None) -> torch.Tensor:
     """Sparse-dense matmul ``out = reduce(A ⊙ x)`` with full autograd.
 
     Args:
@@ -134,18 +154,31 @@ def spmm(graph, x: torch.Tensor, reduce: str | Reduce = "sum",
       x: dense operand (C, K).
       reduce: sum | mean | max | min.
       backend: ``"auto"`` (the kernels for a TiledGraph or a ShardedGraph
-        with plans) or ``"reference"`` (the plain PyTorch path for any
-        graph; a ShardedGraph's reference route).
+        with plans; a CSRGraph whose values need no gradient goes through
+        ``auto_tile`` at x's width first, which tiles a large one on CUDA,
+        once per graph and K bucket, and returns any other unchanged) or
+        ``"reference"`` (the plain PyTorch path for any graph, never
+        tiled; a ShardedGraph's reference route); None takes the process
+        default (``set_default_backend``).
+
+    A CSRGraph whose values require a gradient (``g.with_value(att)``)
+    runs the reference path: its values change every step, and the plans
+    of a tiled graph hold the values the graph had when it was tiled, so
+    an in-place edit of ``graph.value`` after the first call is not seen
+    by the sum kernels either.
     """
-    if backend not in _BACKENDS:
-        raise ValueError(f"backend must be one of {_BACKENDS}, got "
-                         f"{backend!r}")
+    if backend is None:
+        backend = _default_backend
+    _check_backend(backend)
     from ..dist.partition import ShardedGraph
     if isinstance(graph, ShardedGraph):
         from ..dist.spmm_dist import spmm_sharded
         if backend == "reference":
             graph = graph.without_plans()
         return spmm_sharded(graph, x, reduce)
+    if (backend == "auto" and isinstance(graph, CSRGraph)
+            and not graph.value.requires_grad):
+        graph = auto_tile(graph, k=int(x.shape[1]))
     return SpMM.apply(graph, Reduce.of(reduce), backend, x,
                       base_graph(graph).value)
 

@@ -1,11 +1,14 @@
 """Benchmark CLI, the counterpart of the JAX package's ``scripts/run_model.py``.
 
     python -m isplib_tpu_torch.run_model sage reddit --aggr max \\
-        [auto|reference] [--epochs N] [--embedding 32] [--scale S] \\
+        [auto|reference|pt1] [--epochs N] [--embedding 32] [--scale S] \\
         [--seed 0] [--nopad] [--device cuda]
 
 ``auto`` trains through the kernels (a large graph is tiled on CUDA);
-``reference`` through the plain PyTorch SpMM.  Prints the reference's
+``reference`` through the plain PyTorch SpMM; ``pt1`` trains the
+plain-torch baseline (``interop.torch_baseline``: ``torch.sparse.mm``, the
+reference's comparison column; under ``iSpLibPlugin.patch_pyg`` it runs on
+the port's kernels).  Prints the reference's
 TRG_TM / TRG_STD / TST_TM / TRG_ACC / TST_ACC table and a CSV line of the
 same five numbers.
 """
@@ -22,7 +25,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("model", choices=["gcn", "sage", "gin"])
     ap.add_argument("dataset")
     ap.add_argument("backend", nargs="?", default="auto",
-                    choices=["auto", "reference"])
+                    choices=["auto", "reference", "pt1"])
     ap.add_argument("--aggr", default="sum",
                     choices=["sum", "mean", "max", "min"])
     ap.add_argument("--epochs", type=int, default=2)
@@ -50,14 +53,20 @@ def main(argv: list[str] | None = None) -> int:
           f"{ds.num_features} features, {ds.num_classes} classes "
           f"({time.time() - t0:.1f}s)", file=sys.stderr)
 
-    kwargs = dict(hidden=args.embedding, num_classes=ds.num_classes,
-                  device=args.device, seed=args.seed)
-    if args.model == "sage":
-        kwargs["aggr"] = args.aggr
-    model = MODEL_REGISTRY[args.model](ds.num_features, **kwargs)
-    res = train_node_classifier(model, ds, epochs=args.epochs,
-                                seed=args.seed, device=args.device,
-                                tile=args.backend == "auto")
+    if args.backend == "pt1":
+        from .interop.torch_baseline import train_torch_baseline
+        res = train_torch_baseline(args.model, ds, epochs=args.epochs,
+                                   hidden=args.embedding, aggr=args.aggr,
+                                   seed=args.seed, device=args.device)
+    else:
+        kwargs = dict(hidden=args.embedding, num_classes=ds.num_classes,
+                      device=args.device, seed=args.seed)
+        if args.model == "sage":
+            kwargs["aggr"] = args.aggr
+        model = MODEL_REGISTRY[args.model](ds.num_features, **kwargs)
+        res = train_node_classifier(model, ds, epochs=args.epochs,
+                                    seed=args.seed, device=args.device,
+                                    tile=args.backend == "auto")
     print()
     print(res.table())
     print()

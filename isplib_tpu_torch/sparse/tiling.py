@@ -421,9 +421,12 @@ def build_tiling(graph: CSRGraph, version: int = 5, k: int = 32,
         cache_dir=cache_dir, **plan_kwargs)
 
 
-# auto_tile's memo: one TiledGraph per (graph identity, K bucket), dropped
-# when the graph is collected
+# auto_tile's memo, per graph identity: the plan key of each K bucket, and
+# per plan key the plans and a weak reference to the TiledGraph last made of
+# them.  It holds no reference to the graph, so an entry goes when its graph
+# is collected.
 _AUTO_TILED: dict = {}
+_PLAN_FIELDS = ("fwd", "bwd", "fwd_mm", "bwd_mm")
 
 
 def _k_bucket(k: int) -> int:
@@ -445,36 +448,55 @@ def auto_tile(graph, k: int = 32):
     the dense threshold follows the JAX package's occupancy rule: version 5
     at 64 when the graph averages at least 200 edges per 128×128 block,
     else at 128, built on the device and not cached (a v5 build on the
-    card is faster than reading its plans back from disk).  The result is
-    kept per (graph, K bucket).
+    card is faster than reading its plans back from disk).  The choice is
+    kept per (graph, K bucket), and its plans per (graph, version,
+    configuration): K buckets that choose the same plans of a version
+    other than 2 and 3 (which size theirs by ``k``) share one build.  The
+    plans hold the values the graph had when it was tiled.
     A CPU graph is never tiled: there the plan would run the kernels' plain
     versions, which the reference path beats.
     """
     if (not isinstance(graph, CSRGraph) or graph.nnz < AUTO_TILE_MIN_NNZ
             or not _on_cuda(graph)):
         return graph
-    key = (id(graph), _k_bucket(k))
-    hit = _AUTO_TILED.get(key)
-    if hit is not None:
-        return hit
-    from ..tune import autotune
-    signature = autotune.signature_of(graph, k)
-    entry = autotune.lookup(signature)
-    if entry and entry.get("backend") == "reference":
-        return graph  # measured: the reference path wins on this graph
-    if entry and entry.get("backend") == "kernels":
-        version = int(entry["version"])
-        cfg = {f: entry[f] for f in PLAN_KEYS[version] if f in entry}
-        cache_tag = signature
-    else:
-        occ = graph.nnz / max(
-            _cdiv(graph.num_rows, 128) * _cdiv(graph.num_cols, 128), 1)
-        version, cfg = 5, dict(dense_threshold=64 if occ >= 200 else 128)
-        cache_tag = None
-    print(f"[isplib_tpu_torch] auto-tiling graph ({graph.nnz} edges) with "
-          f"version {version} {cfg}", file=sys.stderr)
-    tiled = build_tiling(graph, version=version, k=k, cache_tag=cache_tag,
-                         **cfg)
-    _AUTO_TILED[key] = tiled
-    weakref.finalize(graph, _AUTO_TILED.pop, key, None)
+    memo = _AUTO_TILED.get(id(graph))
+    if memo is None:
+        memo = _AUTO_TILED[id(graph)] = dict(buckets={}, plans={})
+        weakref.finalize(graph, _AUTO_TILED.pop, id(graph), None)
+    bucket = _k_bucket(k)
+    plan_key = memo["buckets"].get(bucket)
+    if plan_key is None:
+        from ..tune import autotune
+        signature = autotune.signature_of(graph, k)
+        entry = autotune.lookup(signature)
+        if entry and entry.get("backend") == "reference":
+            return graph  # measured: the reference path wins on this graph
+        if entry and entry.get("backend") == "kernels":
+            version = int(entry["version"])
+            cfg = {f: entry[f] for f in PLAN_KEYS[version] if f in entry}
+            cache_tag = signature
+        else:
+            occ = graph.nnz / max(
+                _cdiv(graph.num_rows, 128) * _cdiv(graph.num_cols, 128), 1)
+            version = 5
+            cfg = dict(dense_threshold=64 if occ >= 200 else 128)
+            cache_tag = None
+        # only versions 2 and 3 size their plans by k: the others' serve
+        # every K bucket
+        plan_key = (version, tuple(sorted(cfg.items())),
+                    bucket if version in (2, 3) else None)
+        if plan_key not in memo["plans"]:
+            print(f"[isplib_tpu_torch] auto-tiling graph ({graph.nnz} "
+                  f"edges) with version {version} {cfg}", file=sys.stderr)
+            tiled = build_tiling(graph, version=version, k=k,
+                                 cache_tag=cache_tag, **cfg)
+            memo["plans"][plan_key] = [
+                {f: getattr(tiled, f) for f in _PLAN_FIELDS},
+                weakref.ref(tiled)]
+        memo["buckets"][bucket] = plan_key
+    held = memo["plans"][plan_key]
+    tiled = held[1]()
+    if tiled is None:
+        tiled = TiledGraph(graph=graph, **held[0])
+        held[1] = weakref.ref(tiled)
     return tiled

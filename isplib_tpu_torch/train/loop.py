@@ -24,7 +24,7 @@ from ..dist.partition import ShardedGraph
 from ..nn.conv import BatchNorm
 from ..sparse.tiling import TiledGraph, auto_tile, base_graph
 
-__all__ = ["TrainResult", "train_node_classifier"]
+__all__ = ["TrainResult", "train_node_classifier", "make_train_step"]
 
 
 @dataclasses.dataclass
@@ -92,6 +92,35 @@ class _Clock:
         return [b - a for a, b in zip(self.marks[::2], self.marks[1::2])]
 
 
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    graph, loss: str = "nll", backend: Optional[str] = None):
+    """One full-batch epoch as a function, the counterpart of the JAX
+    package's ``make_train_step``.
+
+    ``step(x, y, mask, generator)`` puts ``model`` in training mode, zeroes
+    the gradients, runs the forward pass on ``graph`` (dropout masks drawn
+    from ``generator``, a ``torch.Generator`` on x's device, or the global
+    generator when None), the masked ``loss`` (``"nll"`` or ``"ce"``), the
+    backward pass and ``optimizer.step()``, and returns ``(loss,
+    train_accuracy)`` as 0-d tensors on x's device, without waiting for the
+    device.  ``model`` is one of the port's models, whose forward takes
+    ``generator`` and ``backend``; ``backend`` goes to every SpMM of the
+    forward pass (``ops.spmm.spmm``; None: the process default).
+    """
+
+    def step(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+             generator: Optional[torch.Generator] = None):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(graph, x, generator=generator, backend=backend)
+        lval = _loss_fn(logits, y, mask, loss)
+        lval.backward()
+        optimizer.step()
+        return lval.detach(), _masked_acc(logits.detach(), y, mask)
+
+    return step
+
+
 def train_node_classifier(
     model: torch.nn.Module,
     ds: NodeDataset,
@@ -112,7 +141,9 @@ def train_node_classifier(
     graph, tiled or not.  A ShardedGraph (``dist.partition_rows``) is
     trained on as it is (without ``tile``, on its reference route), its
     SpMMs on the process-default mesh (``dist.set_mesh``), with global
-    features and labels.  ``loss`` defaults to ``'ce'`` for a model
+    features and labels.  Without ``tile`` every SpMM of the run takes
+    ``backend="reference"``, so a large plain graph is not tiled by
+    ``spmm`` either.  ``loss`` defaults to ``'ce'`` for a model
     with batch statistics (GIN emits logits) and ``'nll'`` otherwise, as in
     the JAX package.  ``seed`` seeds the dropout generator.  The warm-up
     epoch's changes to the parameters and to the batch statistics are
@@ -140,32 +171,25 @@ def train_node_classifier(
     train_mask = torch.from_numpy(np.asarray(ds.train_mask)).to(dev)
     test_mask = torch.from_numpy(np.asarray(ds.test_mask)).to(dev)
 
-    def step(opt, gen):
-        opt.zero_grad(set_to_none=True)
-        logits = model(graph, x, generator=gen)
-        lval = _loss_fn(logits, y, train_mask, loss)
-        lval.backward()
-        opt.step()
-        return lval.detach(), _masked_acc(logits.detach(), y, train_mask)
-
     def adam():
         return torch.optim.Adam(model.parameters(), lr=lr,
                                 weight_decay=weight_decay)
 
     # warm-up epoch (builds the kernels, first-call costs), then restore the
     # state_dict: the parameters and the BatchNorm running statistics
-    model.train()
     init = {k: v.clone() for k, v in model.state_dict().items()}
-    step(adam(), torch.Generator(device=dev).manual_seed(seed))
+    backend = None if tile else "reference"
+    make_train_step(model, adam(), graph, loss, backend)(
+        x, y, train_mask, torch.Generator(device=dev).manual_seed(seed))
     model.load_state_dict(init)
 
-    opt = adam()
+    step = make_train_step(model, adam(), graph, loss, backend)
     gen = torch.Generator(device=dev).manual_seed(seed)
     clock = _Clock(dev)
     losses, acc = [], None
     for _ in range(epochs):
         clock.mark()
-        lval, acc = step(opt, gen)
+        lval, acc = step(x, y, train_mask, gen)
         clock.mark()
         losses.append(lval)
     epoch_times = clock.seconds()
@@ -174,10 +198,10 @@ def train_node_classifier(
 
     model.eval()
     with torch.no_grad():
-        model(graph, x)  # warm
+        model(graph, x, backend=backend)  # warm
         clock = _Clock(dev)
         clock.mark()
-        logits = model(graph, x)
+        logits = model(graph, x, backend=backend)
         clock.mark()
         test_time = clock.seconds()[0]
         test_acc = float(_masked_acc(logits, y, test_mask))
