@@ -168,6 +168,21 @@
       one graph and plan build a call, and once the cache is full its
       entries, ``auto_tile``'s memo and the device memory stay flat.
 
+11. The main path on the full graph: reddit-sim at scale 1.0 (232,965
+   nodes, 114.8M edges with self loops; ``bench.py``'s reddit at its full
+   size), drawn from R-MAT's native stream and built by the port's native
+   builder, the host seconds of each step logged (R-MAT, ``_build_arrays``,
+   the upload, ``auto_tile``'s v5 plans of A and Aᵀ), with the dense
+   threshold that the 2 GiB block cap sets and its coverage.  K2 and K1
+   against their plain versions and the hybrid SpMM at K = 32 against the
+   fp32 reference computed over ranges of rows (2e-2), timed beside the
+   bound; then GCN(602 → 32 → 41), ``FULL_EPOCHS`` epochs through K1 + K2
+   (with the launch counts set to 0 just before) and the same epochs on
+   the reference path from the same seed: the losses finite and falling,
+   within 2e-2 of each other at every epoch, the trained model's loss
+   through the kernels against the reference path (2e-2), train accuracy
+   above 0.7; the peak device memory.
+
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line; every
 number it measures is logged on the lines before.  Any failed check raises:
@@ -217,7 +232,10 @@ FUSED_KS = (FUSED_K, 41, 256)   # the embedding width, a ragged and the widest
 SDDMM_KS = (32, 41, K_WIDE)
 FUSED_STEPS = 20
 TUNE_ITERS = 10           # chain_time calls per configuration in the sweep
+FULL_EPOCHS = 30          # phase 11's GCN epochs on the full graph, each path
+REF_EDGES = 1 << 24       # edges a range of rows of the reference SpMM takes
 SPIN_CYCLES = 4_000_000   # ~2 ms of the card's clock around a profiled call
+LEAD_KERNELS = 16         # small kernels that open a profiled window
 
 
 def log(msg: str) -> None:
@@ -305,12 +323,31 @@ def dense_half_csr(plan, graph):
     return csr(rowptr, col[is_dense], val[is_dense], graph.shape)
 
 
+def reference_by_rows(g, x):
+    """The fp32 reference SpMM (sum) of ``g``, computed over ranges of rows
+    of at most ``REF_EDGES`` edges (a hub row whole), so that the gathered
+    (edges, K) temporaries stay within a few GB at 114.6M edges."""
+    from isplib_tpu_torch.ops import reference
+    rowptr = g.rowptr.cpu().numpy().astype(np.int64)
+    out = x.new_empty(g.num_rows, x.shape[1])
+    r0 = 0
+    while r0 < g.num_rows:
+        r1 = int(np.searchsorted(rowptr, rowptr[r0] + REF_EDGES,
+                                 side="right")) - 1
+        r1 = min(max(r1, r0 + 1), g.num_rows)
+        e0, e1 = int(rowptr[r0]), int(rowptr[r1])
+        out[r0:r1] = reference.spmm_raw(g.row[e0:e1] - r0, g.col[e0:e1],
+                                        g.value[e0:e1], g.deg[r0:r1], x,
+                                        r1 - r0, "sum")
+        r0 = r1
+    return out
+
+
 def check_and_time(name, graph, tiled, direction, k, gen):
     """One (graph, direction, K) case: both kernels against their plain
     versions, the hybrid against the fp32 reference, and the timings."""
     from isplib_tpu_torch.kernels import spmm_bsr, spmm_stream
     from isplib_tpu_torch.kernels.spmm_hybrid import spmm_hybrid
-    from isplib_tpu_torch.ops import reference
 
     plan = tiled.fwd if direction == "fwd" else tiled.bwd
     g = graph if direction == "fwd" else graph.transpose()
@@ -375,8 +412,7 @@ def check_and_time(name, graph, tiled, direction, k, gen):
 
     # ---- the whole hybrid SpMM against the fp32 reference ------------------
     hyb = spmm_hybrid(plan, x)
-    ref = reference.spmm_raw(g.row, g.col, g.value, g.deg, x, g.num_rows,
-                             "sum")
+    ref = reference_by_rows(g, x)
     scale = float(ref.abs().max())
     herr = float((hyb - ref).abs().max())
     if not bool(torch.isfinite(hyb).all()) or not torch.allclose(
@@ -384,9 +420,19 @@ def check_and_time(name, graph, tiled, direction, k, gen):
         raise AssertionError(f"hybrid {name}/{direction}/K={k} vs reference: "
                              f"max err {herr} (max |ref| {scale})")
     lib_all = csr(g.rowptr, g.col[:g.nnz], g.value[:g.nnz], g.shape)
+    # the whole SpMM's bound: each kernel's bytes, x and the output once;
+    # its operations take the longer of the tensor cores' and fp32's times
+    d_bytes = plan.nb * 128 * 128 * 2 + (plan.n_br + 1 + plan.nb) * 4
+    r_bytes = (plan.sparse_edges * 8 + (plan.num_rows + 1) * 4
+               + (2 * plan.nseg + 1) * 4)
+    t_ops = max(2.0 * plan.nb * 128 * 128 * k / BF16_TENSOR_FLOPS,
+                2.0 * plan.sparse_edges * k / FP32_FLOPS)
     whole = dict(max_abs_err=herr, max_abs_ref=scale,
                  hybrid_ms=cuda_ms(lambda: spmm_hybrid(plan, x)),
-                 library_ms=cuda_ms(lambda: torch.sparse.mm(lib_all, x)))
+                 library_ms=cuda_ms(lambda: torch.sparse.mm(lib_all, x)),
+                 bound=bound_ms(d_bytes + r_bytes
+                                + (plan.num_cols + plan.num_rows) * k * 4,
+                                t_ops * FP32_FLOPS, FP32_FLOPS))
     return rows, whole
 
 
@@ -1570,8 +1616,16 @@ def tuner_paths(graphs, cases, drive, train, check, gen):
 
 
 def spun(fn):
-    """``fn()`` between two spins of the card (``torch.cuda._sleep``), so
-    that a profiled window starts and ends with the card busy."""
+    """``fn()`` in a profiled window, after ``LEAD_KERNELS`` small kernels
+    and between two spins of the card (``torch.cuda._sleep``), so that the
+    window starts and ends with the card busy.  On the H100 the profiler
+    drops the first 4 or 5 device records of a session as out of its
+    window (Kineto's "Out-of-range" count, whatever their times: PR 12's
+    probes), so the lead kernels are the records it loses."""
+    lead = torch.zeros(1, device="cuda")
+    for _ in range(LEAD_KERNELS):
+        lead.add_(1.0)
+    torch.cuda.synchronize()
     torch.cuda._sleep(SPIN_CYCLES)
     out = fn()
     torch.cuda._sleep(SPIN_CYCLES)
@@ -1585,10 +1639,11 @@ def complete_capture(call, capture, launched_by: dict, tries: int = 10,
     returns ``(result, the kernel names it recorded, one per kernel
     event)``; each attempt runs ``call`` unprofiled first.  torch.profiler
     can drop device records (seen on an H100: a profile of a few kernels
-    that records none or some of them), so a capture is used only when it
-    holds the kernels this script counts itself: with ``whole``, one
-    recorded event per launch of each ``{name substring: kernel module}``
-    of ``launched_by`` (its ``LAUNCHES``), else at least one.  Returns
+    that records none or some of them; :func:`spun` opens each window with
+    the records it drops), so a capture is used only when it holds the
+    kernels this script counts itself: with ``whole``, one recorded event
+    per launch of each ``{name substring: kernel module}`` of
+    ``launched_by`` (its ``LAUNCHES``), else at least one.  Returns
     ``(result, attempts)`` of the first such capture of ``tries``."""
     for attempt in range(1, tries + 1):
         call()
@@ -2031,6 +2086,133 @@ def interop_paths(graphs, drive, dataset, gen):
         f"{time.perf_counter() - t_phase:.1f}s")
 
 
+def fullscale_path(drive, cases, gen):
+    """Phase 11: the main path on the full reddit-sim, 232,965 nodes and
+    114.6M edges (bench.py's reddit at scale 1.0), drawn from R-MAT's
+    native stream and built by the native builder: the host seconds of
+    each step, ``auto_tile``'s v5 plans of A and Aᵀ (threshold after the
+    2 GiB block cap, dense coverage), K2 and K1 against their plain
+    versions and the hybrid SpMM at K = 32 against the fp32 reference over
+    ranges of rows, timed beside its bound; then GCN(602 → 32 → 41),
+    ``FULL_EPOCHS`` epochs through K1 + K2 and the same epochs on the
+    reference path, the two loss curves within 2e-2 at every epoch, the
+    trained model's loss through the kernels against the reference path
+    at 2e-2, train accuracy above 0.7; the peak device memory."""
+    from isplib_tpu_torch import GCN, graph_from_arrays, train_node_classifier
+    from isplib_tpu_torch.data import NodeDataset, gen_gcnsig_graph
+    from isplib_tpu_torch.sparse.tiling import auto_tile
+    from isplib_tpu_torch.train.loop import _loss_fn
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    arrays = gen_gcnsig_graph(N_REAL, E_REAL, CLASSES, FEATURES, SEED,
+                              EDGE_MULTIPLE, native_stream=True)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = graph_from_arrays(arrays, "cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiled = auto_tile(g)
+    torch.cuda.synchronize()
+    tile_s = time.perf_counter() - t0
+    if tiled is g:
+        raise AssertionError("reddit-full: auto_tile did not tile")
+    fwd, bwd = tiled.fwd, tiled.bwd
+    log(f"reddit-full: {g.num_rows} nodes, {g.nnz} edges; graph made and "
+        f"built on the host in {gen_s:.2f}s, uploaded in {upload_s:.2f}s, "
+        f"auto_tile {tile_s:.2f}s (host read-back, v5 plans of A and Aᵀ, "
+        f"max/min plans)")
+    for label, plan in (("A", fwd), ("Aᵀ", bwd)):
+        log(f"reddit-full v5 plan of {label}: dense threshold "
+            f"{plan.dense_threshold} after the 2 GiB block cap, "
+            f"{plan.dense_edges} dense edges in {plan.nb} blocks "
+            f"({100 * plan.dense_edges / g.nnz:.2f}% coverage), "
+            f"{plan.sparse_edges} residual edges in {plan.nseg} segments")
+
+    rows, whole = check_and_time("reddit-full", g, tiled, "fwd", 32, gen)
+    cases += rows
+    for r in rows:
+        log(f"{r['kernel']:12s} reddit-full fwd K=32: {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.3f}, library {r['library_ms']:.4f}, "
+            f"bound {r['bound'][0]:.4f} by {r['bound'][1]}), err "
+            f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}")
+    log(f"hybrid       reddit-full fwd K=32: {whole['hybrid_ms']:.4f} ms, "
+        f"bound {whole['bound'][0]:.4f} by {whole['bound'][1]} "
+        f"({100 * whole['bound'][0] / whole['hybrid_ms']:.1f}% of it), "
+        f"{g.nnz / whole['hybrid_ms'] / 1e6:.3f} Gedges/s; whole-SpMM "
+        f"library {whole['library_ms']:.4f} ms; err vs the fp32 reference "
+        f"by row ranges {whole['max_abs_err']:.3g} (max |ref| "
+        f"{whole['max_abs_ref']:.3g})")
+
+    def dataset(graph):
+        return NodeDataset(name="reddit-full", graph=graph, x=arrays["x"],
+                           y=arrays["y"], train_mask=arrays["train_mask"],
+                           val_mask=arrays["train_mask"],
+                           test_mask=arrays["test_mask"],
+                           num_classes=CLASSES)
+
+    def gcn():
+        return GCN(FEATURES, hidden=32, num_classes=CLASSES, seed=0)
+
+    model = gcn()
+    res, _ = drive("GCN full-scale path", ("spmm_bsr", "spmm_stream"),
+                   lambda: train_node_classifier(model, dataset(tiled),
+                                                 epochs=FULL_EPOCHS))
+    ref_model = gcn()
+    ref = train_node_classifier(ref_model, dataset(g), epochs=FULL_EPOCHS,
+                                tile=False)
+    for label, r in (("kernels", res), ("reference path", ref)):
+        log(f"reddit-full GCN(602-32-41) through the {label}, "
+            f"{FULL_EPOCHS} epochs:\n{r.table()}")
+        log(f"reddit-full GCN {label}: epoch {r.train_time_avg * 1e3:.3f} "
+            f"ms (std {r.train_time_std * 1e3:.3f}), eval "
+            f"{r.test_time * 1e3:.3f} ms; loss {r.losses[0]:.5f} -> "
+            f"{r.losses[-1]:.5f}; train acc {r.train_acc:.4f}, test acc "
+            f"{r.test_acc:.4f}")
+    got, want = np.asarray(res.losses), np.asarray(ref.losses)
+    gap = np.abs(got - want) / np.abs(want)
+    log(f"reddit-full GCN losses, kernels / reference path, every 5th "
+        f"epoch: " + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in
+                              zip(got[::5], want[::5]))
+        + f"; largest relative gap {gap.max():.3g} (epoch "
+        f"{int(gap.argmax())})")
+    if not (np.all(np.isfinite(got)) and got[-1] < got[0]):
+        raise AssertionError(f"reddit-full GCN: loss not finite or not "
+                             f"falling: {res.losses}")
+    if not gap.max() <= 2e-2:
+        raise AssertionError(f"reddit-full GCN: the loss through the "
+                             f"kernels left the reference path's by "
+                             f"{gap.max():.3g} > 2e-2")
+    if not res.train_acc > 0.7:
+        raise AssertionError(f"reddit-full GCN: train accuracy "
+                             f"{res.train_acc} <= 0.7 after {FULL_EPOCHS} "
+                             f"epochs")
+    x = torch.from_numpy(arrays["x"]).cuda()
+    y = torch.from_numpy(arrays["y"]).cuda()
+    mask = torch.from_numpy(arrays["train_mask"]).cuda()
+    model.eval()
+    with torch.no_grad():
+        l_kernel = float(_loss_fn(model(tiled, x), y, mask, "nll"))
+        l_ref = float(_loss_fn(model(g, x, backend="reference"), y, mask,
+                               "nll"))
+    log(f"reddit-full GCN: trained loss through the kernels "
+        f"{l_kernel:.7f}, reference path {l_ref:.7f}")
+    if not abs(l_kernel - l_ref) <= 2e-2 * abs(l_ref):
+        raise AssertionError(f"reddit-full GCN: trained loss through the "
+                             f"kernels {l_kernel} vs reference {l_ref}")
+    log(f"reddit-full peak device memory (max_memory_allocated): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del x, y, mask, model, ref_model, tiled, g, arrays
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 11 (the main path on the full graph): "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+
 def graph_specs() -> list[tuple[str, int, int, int]]:
     """(name, nodes, edges, seed) of the two GCN-signal graphs, at
     bench.py's sizes: reddit at scale 0.05, and its density-representative
@@ -2304,6 +2486,9 @@ def smoke() -> int:
 
     # ---- interop and the training tools (K1/K2 through the bridge, K3) ----
     interop_paths(graphs, drive, dataset, gen)
+
+    # ---- the main path on the full 114.6M-edge graph (K1, K2) -------------
+    fullscale_path(drive, cases, gen)
 
     # ---- the kernel table, each kernel at K = 32 forward on the graph whose
     # edges it carries: the dense blocks of reddit-sim, the residual edges

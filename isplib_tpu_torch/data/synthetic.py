@@ -1,13 +1,16 @@
 """Synthetic graphs, the counterpart of ``isplib_tpu.data.synthetic`` plus
 the two graph generators of the JAX package's ``bench.py``.
 
-Everything is numpy from a seed, so both packages build identical graphs
-from the same call; only the final graph lives on a torch device.
+Everything is made on the host from a seed, so a call builds the graph
+that the JAX package's numpy paths build from it (R-MAT's native stream only
+where a caller asks for it); only the final graph lives on a torch device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 
 import numpy as np
 import torch
@@ -17,6 +20,8 @@ from ..sparse.tiling import TiledGraph
 
 __all__ = ["NodeDataset", "rmat_edges", "rmat_dataset", "sbm_dataset",
            "gen_rmat_graph", "gen_gcnsig_graph"]
+
+_log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +47,22 @@ class NodeDataset:
 
 
 def rmat_edges(num_nodes: int, num_edges: int, seed: int = 0,
-               a: float = 0.57, b: float = 0.19, c: float = 0.19
-               ) -> np.ndarray:
+               a: float = 0.57, b: float = 0.19, c: float = 0.19,
+               native_stream: bool = False) -> np.ndarray:
     """Vectorised R-MAT edges (power-law degrees), (2, E) int64 [src; dst],
-    self loops removed, duplicates kept (the JAX package's numpy path)."""
+    self loops removed, duplicates kept.
+
+    The default stream is the JAX package's numpy path (``default_rng``),
+    so a seed names one graph whatever is built.  ``native_stream`` takes
+    the native generator's SplitMix64 stream (``native.rmat``, the JAX
+    package's when its library loads), another graph of the same law,
+    drawn in parallel."""
+    if native_stream:
+        from .. import native
+        src, dst = native.rmat(num_edges, num_nodes, seed, a, b, c)
+        keep = src != dst
+        return np.stack([src[keep].astype(np.int64),
+                         dst[keep].astype(np.int64)])
     rng = np.random.default_rng(seed)
     scale = int(np.ceil(np.log2(max(num_nodes, 2))))
     src = np.zeros(num_edges, np.int64)
@@ -151,18 +168,22 @@ def gen_rmat_graph(num_nodes: int, num_edges: int, seed: int,
 
 
 def gen_gcnsig_graph(num_nodes: int, num_edges: int, num_classes: int,
-                     feat_dim: int, seed: int,
-                     edge_multiple: int = 4096) -> dict:
+                     feat_dim: int, seed: int, edge_multiple: int = 4096,
+                     native_stream: bool = False) -> dict:
     """Host arrays of ``bench.py``'s GCN-signal graph: 80% R-MAT structure
     plus 20% intra-class edges, GCN-normalised with self loops, and features
     that are class centroids plus noise, so a working GCN reaches high
-    train accuracy.  Adds ``x``, ``y``, ``train_mask`` and ``test_mask``."""
+    train accuracy.  Adds ``x``, ``y``, ``train_mask`` and ``test_mask``.
+    ``native_stream`` as in :func:`rmat_edges`.  The host seconds of the
+    R-MAT draw and of ``_build_arrays`` are logged at INFO."""
     rng = np.random.default_rng(seed + 17)
     y = rng.integers(0, num_classes, size=num_nodes).astype(np.int32)
 
     e_rmat = int(num_edges * 0.8)
     e_homo = num_edges - e_rmat
-    ei = rmat_edges(num_nodes, e_rmat, seed)
+    t0 = time.perf_counter()
+    ei = rmat_edges(num_nodes, e_rmat, seed, native_stream=native_stream)
+    t_rmat = time.perf_counter() - t0
     src = rng.integers(0, num_nodes, size=e_homo).astype(np.int64)
     cls_nodes = [np.flatnonzero(y == c2) for c2 in range(num_classes)]
     dst = np.empty(e_homo, np.int64)
@@ -178,7 +199,12 @@ def gen_gcnsig_graph(num_nodes: int, num_edges: int, num_classes: int,
     dinv = 1.0 / np.sqrt(np.maximum(deg, 1.0))
     vals = (dinv[d] * dinv[s]).astype(np.float32)
 
+    t0 = time.perf_counter()
     arrays = _build_arrays(d, s, vals, num_nodes, num_nodes, edge_multiple)
+    _log.info("GCN-signal graph of %d nodes, %d edges: R-MAT (%s) %.3fs, "
+              "_build_arrays %.3fs", num_nodes, arrays["nnz"],
+              "SplitMix64" if native_stream else "numpy", t_rmat,
+              time.perf_counter() - t0)
     centers = rng.normal(size=(num_classes, feat_dim)).astype(np.float32)
     x = (centers[y] + 2.5 * rng.normal(size=(num_nodes, feat_dim))
          ).astype(np.float32)

@@ -1,9 +1,9 @@
 """Padded CSR graph container, the counterpart of ``isplib_tpu.sparse.graph``.
 
 A :class:`CSRGraph` holds every array the forward and backward passes need,
-built once on the host with numpy and then moved to one device.  The field
-set, dtypes and padding contract are those of the JAX package, so the two
-containers compare field by field:
+built once on the host (numpy and the port's native sorter) and then moved
+to one device.  The field set, dtypes and padding contract are those of the
+JAX package, so the two containers compare field by field:
 
 * pad edges are appended after the real ones with row = ``num_rows``,
   col = ``num_cols`` and value 0, and there is always at least one, so edge id
@@ -21,6 +21,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
 
 __all__ = ["CSRGraph", "from_edge_index", "from_scipy", "graph_from_arrays"]
@@ -123,8 +124,10 @@ def _build_arrays(
 ) -> dict[str, Any]:
     """Padded CSR + CSC numpy arrays of a COO edge list.
 
-    Same arrays as ``isplib_tpu.sparse.graph._build_arrays`` on its numpy
-    path (``np.lexsort``); the optional native sorter is not ported.
+    Same arrays as ``isplib_tpu.sparse.graph._build_arrays``.  Both orders
+    are stable sorts: the port's native counting sort
+    (``native.sort_csr``), or ``np.lexsort`` where ``native.available`` is
+    patched to False (the reference build); the two give equal arrays.
     """
     row = np.asarray(row, dtype=np.int64)
     col = np.asarray(col, dtype=np.int64)
@@ -135,7 +138,10 @@ def _build_arrays(
         value = np.asarray(value, dtype=np.float32)
 
     if nnz:
-        perm = np.lexsort((col, row))  # CSR order: last key is primary
+        if native.available():
+            perm = native.sort_csr(row, col, num_rows, num_cols)[0]
+        else:
+            perm = np.lexsort((col, row))  # CSR order: last key is primary
         row, col, value = row[perm], col[perm], value[perm]
 
     # at least one pad edge: edge id nnz_padded-1 is the inert sentinel
@@ -150,7 +156,11 @@ def _build_arrays(
     rowptr[1:] = np.cumsum(counts)
 
     # stable sort by column keeps pad edges (col == num_cols) at the end
-    csc_perm = np.lexsort((row_p, col_p))
+    if native.available():
+        csc_perm = native.sort_csr(col_p, row_p, num_cols + 1,
+                                   num_rows + 1)[0]
+    else:
+        csc_perm = np.lexsort((row_p, col_p))
     col_counts = (np.bincount(col, minlength=num_cols) if nnz
                   else np.zeros(num_cols, dtype=np.int64))
     csc_colptr = np.zeros(num_cols + 1, dtype=np.int64)

@@ -42,6 +42,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
 from .graph import CSRGraph
 from .tiling_v2 import TiledPlanV2, build_plan_v2_arrays, row_items
@@ -162,8 +163,10 @@ def build_plan_v1_arrays(row: np.ndarray, col: np.ndarray, val: np.ndarray,
                          num_rows: int, num_cols: int, rb: int = 256,
                          ct: int = 512, eb: int = 512,
                          device: str | torch.device = "cuda") -> TiledPlan:
-    """The v1 plan of host COO arrays (the JAX package's numpy build of
-    ``_build_plan_arrays``), moved to ``device``."""
+    """The v1 plan of host COO arrays (the JAX package's
+    ``_build_plan_arrays``), moved to ``device``.  Row-sorted edges take
+    the native build (``native.plan_chunks``), any other input the numpy
+    build, the reference; both give the same arrays."""
     if eb % _LANE:
         raise ValueError(f"the chunk size eb={eb} must be a multiple of 128")
     if rb % 8 or ct % 8:
@@ -176,6 +179,13 @@ def build_plan_v1_arrays(row: np.ndarray, col: np.ndarray, val: np.ndarray,
     nrb = _cdiv(num_rows, rb)
     nct = _cdiv(num_cols, ct)
 
+    if nnz and native.available() and bool(np.all(row[1:] >= row[:-1])):
+        edges, rb_ids, ct_ids, chunk_starts = native.plan_chunks(
+            row, col, val, num_rows, num_cols, rb, ct, eb)
+        nc = edges.shape[0]
+        return _v1_plan(edges.reshape(nc, 3, eb // _LANE, _LANE), rb_ids,
+                        ct_ids, chunk_starts, rb, ct, eb, num_rows, num_cols,
+                        float(nnz) / max(nc * eb, 1), dev)
     if nnz:
         rbid, ctid = row // rb, col // ct
         order = np.lexsort((row, ctid, rbid))
@@ -219,15 +229,22 @@ def build_plan_v1_arrays(row: np.ndarray, col: np.ndarray, val: np.ndarray,
     order2 = np.argsort(rb_ids, kind="stable")
     edges = planes[:, order2].transpose(1, 0, 2).reshape(
         nc, 3, eb // _LANE, _LANE)
+    return _v1_plan(edges, rb_ids[order2], ct_ids[order2], chunk_starts, rb,
+                    ct, eb, num_rows, num_cols,
+                    float(nnz) / max(nc * eb, 1), dev)
 
+
+def _v1_plan(edges, rb_ids, ct_ids, chunk_starts, rb, ct, eb, num_rows,
+             num_cols, fill, dev) -> TiledPlan:
+    """The TiledPlan of the host arrays on ``dev``, with K10's schedule."""
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
-    plan = TiledPlan(edges=i32(edges), rb_ids=i32(rb_ids[order2]),
-                     ct_ids=i32(ct_ids[order2]),
-                     chunk_starts=i32(chunk_starts), rb=rb, ct=ct, eb=eb,
-                     nc=nc, num_rows=num_rows, num_cols=num_cols,
-                     fill=float(nnz) / max(nc * eb, 1))
+    nc = int(edges.shape[0])
+    plan = TiledPlan(edges=i32(edges), rb_ids=i32(rb_ids),
+                     ct_ids=i32(ct_ids), chunk_starts=i32(chunk_starts),
+                     rb=rb, ct=ct, eb=eb, nc=nc, num_rows=num_rows,
+                     num_cols=num_cols, fill=fill)
     t0 = time.perf_counter()
     plan = dataclasses.replace(plan, sched=derive_row_schedule(plan))
     _log.info("v1 schedule: %d real slots of %d in %d segments; derived in "
@@ -359,12 +376,17 @@ def build_tiling_from_numpy(graph: CSRGraph, arrays: dict, version: int = 5,
             plans = tree_to(plans, graph.device)
     if plans is None:
         build = _build_fn(version, k, plan_kwargs, graph.device)
+        t0 = time.perf_counter()
+        fwd = build(arrays["row"][:nnz], arrays["col"][:nnz],
+                    arrays["value"][:nnz], graph.num_rows, graph.num_cols)
+        t1 = time.perf_counter()
+        bwd = build(arrays["csc_row"][:nnz], arrays["csc_col"][:nnz],
+                    arrays["csc_value"][:nnz], graph.num_cols,
+                    graph.num_rows) if build_backward else None
+        _log.info("version %d plan of A built in %.3fs, of Aᵀ in %.3fs",
+                  version, t1 - t0, time.perf_counter() - t1)
         plans = dict(
-            fwd=build(arrays["row"][:nnz], arrays["col"][:nnz],
-                      arrays["value"][:nnz], graph.num_rows, graph.num_cols),
-            bwd=build(arrays["csc_row"][:nnz], arrays["csc_col"][:nnz],
-                      arrays["csc_value"][:nnz], graph.num_cols,
-                      graph.num_rows) if build_backward else None,
+            fwd=fwd, bwd=bwd,
             fwd_mm=build_minmax_plan(arrays["rowptr"], graph.num_rows,
                                      graph.num_cols, graph.device,
                                      schedule=True),

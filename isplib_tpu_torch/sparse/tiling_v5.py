@@ -44,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import native
 from .tiling_v3 import MAX_PIECE, BSRSchedule, cut_pieces
 
 __all__ = ["HybridPlan", "build_hybrid_plan", "derive_block_schedule", "BS",
@@ -130,7 +131,16 @@ def build_hybrid_plan(
     dense_threshold: int = 64,
 ) -> HybridPlan:
     """Build the plan from the real (unpadded) edges in CSR (row-sorted)
-    order; the residual half keeps that order, so it needs no sort."""
+    order; the residual half keeps that order, so it needs no sort.
+
+    The block counts and the dense fill are the port's native build
+    (``native.bsr_count``; ``native.bsr_fill`` with one block a group, each
+    block transposed back), or the numpy build, the reference, where
+    ``native.available`` is patched to False.  Both sum a block's duplicate
+    edges in float32 and give the same arrays bit for bit on the host, where
+    ``index_add_`` sums in edge order too; on a card the numpy build's
+    ``index_add_`` sums duplicates in the order its atomics land.
+    """
     row = np.asarray(row, np.int64)
     col = np.asarray(col, np.int64)
     val = np.asarray(val, np.float32)
@@ -140,15 +150,18 @@ def build_hybrid_plan(
     n_br = _cdiv(num_rows, BS)
     n_bc = _cdiv(num_cols, BS)
 
-    bid = (row // BS) * n_bc + (col // BS)
-    counts = np.bincount(bid, minlength=n_br * n_bc)
+    use_native = nnz > 0 and native.available()
+    if use_native:
+        counts = native.bsr_count(row, col, BS, n_br, n_bc)
+    else:
+        bid = (row // BS) * n_bc + (col // BS)
+        counts = np.bincount(bid, minlength=n_br * n_bc)
     thr = max(dense_threshold, 1)
     nb_cap = max(1, MAX_BLOCK_BYTES // (BS * BS * 2))
     if int(np.count_nonzero(counts >= thr)) > nb_cap:
         # the smallest threshold whose block count fits the byte budget
         thr = int(np.sort(counts[counts >= thr])[::-1][nb_cap]) + 1
     dense_b = counts >= thr
-    is_dense = dense_b[bid]
 
     # ---- dense half: blocks sorted by (block-row, block-col) -------------
     dense_ids = np.flatnonzero(dense_b)
@@ -158,15 +171,28 @@ def build_hybrid_plan(
     blk_rowptr = np.zeros(n_br + 1, np.int64)
     np.cumsum(np.bincount(dense_ids // n_bc, minlength=n_br),
               out=blk_rowptr[1:])
-    d_row, d_col = row[is_dense], col[is_dense]
-    flat = slot[bid[is_dense]] * (BS * BS) + (d_row % BS) * BS + d_col % BS
-    blocks = torch.zeros(nb * BS * BS, dtype=torch.float32, device=device)
-    blocks.index_add_(0, torch.from_numpy(flat).to(device),
-                      torch.from_numpy(val[is_dense]).to(device))
-    blocks = blocks.to(torch.bfloat16).view(nb, BS, BS)
+    if use_native:
+        # bsr_fill writes each block as blocks_t[j, c, r] = A[r, c]
+        blocks_t, is_dense = native.bsr_fill(row, col, val, BS, n_br, n_bc,
+                                             1, slot, nb)
+        blocks = torch.from_numpy(blocks_t.view(np.int16)).to(device).view(
+            torch.bfloat16).transpose(1, 2).contiguous()
+        del blocks_t
+        r_row, r_col, r_val = native.compact_residual(row, col, val,
+                                                      is_dense)
+    else:
+        is_dense = dense_b[bid]
+        d_row, d_col = row[is_dense], col[is_dense]
+        flat = (slot[bid[is_dense]] * (BS * BS) + (d_row % BS) * BS
+                + d_col % BS)
+        blocks = torch.zeros(nb * BS * BS, dtype=torch.float32,
+                             device=device)
+        blocks.index_add_(0, torch.from_numpy(flat).to(device),
+                          torch.from_numpy(val[is_dense]).to(device))
+        blocks = blocks.to(torch.bfloat16).view(nb, BS, BS)
+        r_row, r_col, r_val = row[~is_dense], col[~is_dense], val[~is_dense]
 
     # ---- residual half: row-sorted CSR and its segment work list ---------
-    r_row, r_col, r_val = row[~is_dense], col[~is_dense], val[~is_dense]
     nr = int(r_row.shape[0])
     res_rowptr = np.zeros(num_rows + 1, np.int64)
     lens = np.bincount(r_row, minlength=num_rows)

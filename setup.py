@@ -12,8 +12,10 @@ setup(
     packages=find_packages(include=["isplib_tpu", "isplib_tpu.*",
                                     "isplib_tpu_torch",
                                     "isplib_tpu_torch.*"]),
-    # the PyTorch/CUDA port builds these with nvcc at first use
-    package_data={"isplib_tpu_torch.kernels": ["csrc/*.cu"]},
+    # the PyTorch/CUDA port builds these at first use: the kernels with
+    # nvcc, its graph builder with g++
+    package_data={"isplib_tpu_torch.kernels": ["csrc/*.cu", "csrc/*.cuh"],
+                  "isplib_tpu_torch.native": ["csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     extras_require={

@@ -572,23 +572,51 @@ def test_plan_cache_dir_follows_the_environment(tmp_path, monkeypatch):
 # the port imports neither JAX nor the JAX package
 # ---------------------------------------------------------------------------
 
+def _docstrings(tree) -> set:
+    return {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+
+
 def test_port_imports_no_jax():
     """No module of the port, and not ``chip_smoke.py`` (which drives the
     port on a card without JAX), imports JAX, flax or the JAX package; its
-    strings may name JAX files."""
+    strings may name JAX files.  None reaches the JAX package's native
+    library either: no text names ``libisplib_graph.so`` or
+    ``isplib_tpu.native``, no string in the code names the repo's
+    ``native/`` directory, and no relative import leaves the port."""
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 30
     assert PORT / "interop" / "torch_bridge.py" in files
+    assert PORT / "native" / "__init__.py" in files
     files.append(PORT.parent / "chip_smoke.py")
     for f in files:
-        for node in ast.walk(ast.parse(f.read_text())):
+        text = f.read_text()
+        where = f.relative_to(PORT.parent)
+        for banned in ("libisplib_graph", "isplib_tpu.native"):
+            assert banned not in text, f"{where} names {banned}"
+        tree = ast.parse(text)
+        docs = _docstrings(tree)
+        package = list(f.relative_to(PORT.parent).parent.parts)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                parts = node.value.replace("\\", "/").split("/")
+                assert "native" not in parts or f.parent.name == "native", (
+                    f"{where} names a native/ path: {node.value!r}")
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module]
+            elif isinstance(node, ast.ImportFrom):
+                assert f.name != "chip_smoke.py" and node.level <= len(
+                    package), f"{where}: a relative import leaves the port"
+                continue
             else:
                 continue
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "flax", "isplib_tpu"), (
-                    f"{f.relative_to(PORT.parent)} imports {name}")
+                    f"{where} imports {name}")
