@@ -182,6 +182,19 @@
    within 2e-2 of each other at every epoch, the trained model's loss
    through the kernels against the reference path (2e-2), train accuracy
    above 0.7; the peak device memory.
+12. The measuring entry points.  For both GCN-signal graphs of step 2,
+   step 3's whole-hybrid bound at K = 32 must equal ``nnz /
+   plan_bound_edges_per_s`` of the same tiled graph (1e-9 relative): both
+   come from ``isplib_tpu_torch/utils/roofline.py``, the one cost model of
+   the plans.  Then ``python -m isplib_tpu_torch.bench --iters 20`` (scale
+   0.05) and ``python -m isplib_tpu_torch.bench_fused --iters 10``, each a
+   subprocess with a fresh graph, plan and tune cache, its stderr logged:
+   both exit 0; the bench prints exactly one JSON line on stdout, metric
+   ``spmm_sum_edges_per_s_k32_reddit``, value > 0, 0 < vs_baseline <= 1;
+   its GCN and shard stages log OK; both fused pipelines' errors, forward
+   and forward + backward, are at most 1e-4 relative; and every stage
+   launched the kernels of its plans (the launch counts each bench logs
+   in its last ``stages:`` line).
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line; every
@@ -209,11 +222,12 @@ import zlib
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+from isplib_tpu_torch.utils.roofline import (BF16_TENSOR_FLOPS, FP32_FLOPS,
+                                             bound_ms, cost_bound_ms,
+                                             plan_bound_edges_per_s,
+                                             plan_cost, v2_cost)
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-BF16_TENSOR_FLOPS = 989e12    # dense bf16 tensor-core peak
-FP32_FLOPS = 67e12            # fp32 outside the tensor cores
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # bench.py's reddit configuration (DATASET_STATS["reddit"]) at its default
 # scale 0.05, and its seed rule
@@ -236,6 +250,10 @@ FULL_EPOCHS = 30          # phase 11's GCN epochs on the full graph, each path
 REF_EDGES = 1 << 24       # edges a range of rows of the reference SpMM takes
 SPIN_CYCLES = 4_000_000   # ~2 ms of the card's clock around a profiled call
 LEAD_KERNELS = 16         # small kernels that open a profiled window
+BENCH_K = 32              # the bench's headline width (its default --k)
+BENCH_METRIC = "spmm_sum_edges_per_s_k32_reddit"
+BENCH_TOL = 1e-4          # bench_fused's errors, forward and backward
+BENCH_TIMEOUT = 600       # seconds each bench subprocess may take
 
 
 def log(msg: str) -> None:
@@ -287,14 +305,6 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound_ms(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / peak
-    if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes"
-    return t_ops * 1e3, "operations"
 
 
 def csr(rowptr, col, val, shape):
@@ -420,19 +430,11 @@ def check_and_time(name, graph, tiled, direction, k, gen):
         raise AssertionError(f"hybrid {name}/{direction}/K={k} vs reference: "
                              f"max err {herr} (max |ref| {scale})")
     lib_all = csr(g.rowptr, g.col[:g.nnz], g.value[:g.nnz], g.shape)
-    # the whole SpMM's bound: each kernel's bytes, x and the output once;
-    # its operations take the longer of the tensor cores' and fp32's times
-    d_bytes = plan.nb * 128 * 128 * 2 + (plan.n_br + 1 + plan.nb) * 4
-    r_bytes = (plan.sparse_edges * 8 + (plan.num_rows + 1) * 4
-               + (2 * plan.nseg + 1) * 4)
-    t_ops = max(2.0 * plan.nb * 128 * 128 * k / BF16_TENSOR_FLOPS,
-                2.0 * plan.sparse_edges * k / FP32_FLOPS)
+    # the whole SpMM's bound is the plan's (utils/roofline.py), as the bench's
     whole = dict(max_abs_err=herr, max_abs_ref=scale,
                  hybrid_ms=cuda_ms(lambda: spmm_hybrid(plan, x)),
                  library_ms=cuda_ms(lambda: torch.sparse.mm(lib_all, x)),
-                 bound=bound_ms(d_bytes + r_bytes
-                                + (plan.num_cols + plan.num_rows) * k * 4,
-                                t_ops * FP32_FLOPS, FP32_FLOPS))
+                 bound=cost_bound_ms(*plan_cost(plan, k)))
     return rows, whole
 
 
@@ -965,20 +967,6 @@ def partition(name, arrays, tiling, shards=4, hold=None):
     return sg
 
 
-def v2_bound(plan, k: int, real_edges: int, out_bytes_per: int):
-    """Bound of one v2-plan kernel call: the real edges' planes (4 B a
-    plane; the plan's pad slots and cell table are not the function's
-    work), the x tile of every non-empty cell, the (R, K) outputs of
-    ``out_bytes_per`` bytes an entry, and 2 fp32 operations per real edge
-    and feature."""
-    cells = torch.nonzero(plan.cell_starts.diff() > 0).flatten()
-    c0 = (cells % plan.nct) * plan.ct
-    tile_rows = int((plan.num_cols - c0).clamp(max=plan.ct).sum())
-    nbytes = (real_edges * plan.planes * 4 + tile_rows * k * 4
-              + plan.num_rows * k * out_bytes_per)
-    return bound_ms(nbytes, 2.0 * real_edges * k, FP32_FLOPS)
-
-
 def check_and_time_v2(name, case, plan, k, gen):
     """K8 on one v2 plan at K (a shard plan, a full version-2 plan or a
     version-3 residual): against its plain version evaluated in float64
@@ -1009,7 +997,7 @@ def check_and_time_v2(name, case, plan, k, gen):
                 plain_ms=cuda_ms(lambda: k8.spmm_v2_plain(plan, x),
                                  iters=2 if wide else 5, warmup=1),
                 library_ms=cuda_ms(lambda: torch.sparse.mm(lib, x)),
-                bound=v2_bound(plan, k, real, 4))
+                bound=cost_bound_ms(*v2_cost(plan, k)))
 
 
 def check_and_time_v2_minmax(name, case, plan, reduce, k, gen):
@@ -1055,7 +1043,8 @@ def check_and_time_v2_minmax(name, case, plan, reduce, k, gen):
                 edges=real, walk=walk_line(plan.mm_sched, real),
                 ms=cuda_ms(kernel, iters=10 if wide else 30),
                 plain_ms=cuda_ms(plain, iters=2 if wide else 5, warmup=1),
-                library_ms=lib_ms, bound=v2_bound(plan, k, real, 8))
+                library_ms=lib_ms,
+                bound=cost_bound_ms(*v2_cost(plan, k, out_bytes_per=8)))
 
 
 def sharded_paths(graphs, cases, drive, train, check, unsharded, gen):
@@ -2213,6 +2202,142 @@ def fullscale_path(drive, cases, gen):
         f"{time.perf_counter() - t_phase:.1f}s")
 
 
+def bench_stages(stderr: str) -> dict:
+    """The ``stages: {...}`` line a bench logs last on stderr."""
+    found = [ln for ln in stderr.splitlines() if ln.startswith("stages: ")]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} 'stages:' lines on the bench's "
+                             "stderr, not 1")
+    return json.loads(found[0][len("stages: "):])
+
+
+def needs_launches(where: str, launches: dict, names) -> None:
+    missing = [n for n in names if launches.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{where}: {missing} never launched "
+                             f"({launches})")
+
+
+def check_bench(stdout: str, stderr: str) -> dict:
+    """``python -m isplib_tpu_torch.bench``'s output: exactly one JSON line
+    on stdout with the metric's name, a positive value and a
+    ``vs_baseline`` in (0, 1]; the GCN and shard stages logged OK; each
+    stage through the kernels of its plans."""
+    lines = stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} stdout lines, "
+                             f"not 1: {stdout[-2000:]!r}")
+    line = json.loads(lines[0])
+    if sorted(line) != ["metric", "unit", "value", "vs_baseline"]:
+        raise AssertionError(f"the bench's line has the keys {sorted(line)}")
+    if line["metric"] != BENCH_METRIC or line["unit"] != "edges/s/chip":
+        raise AssertionError(f"the bench's line names {line['metric']!r} in "
+                             f"{line['unit']!r}")
+    if not (line["value"] > 0 and 0 < line["vs_baseline"] <= 1):
+        raise AssertionError(f"the bench's value {line['value']}, "
+                             f"vs_baseline {line['vs_baseline']}")
+    if not any(ln.startswith("GCN epoch: ") and "[OK]" in ln
+               for ln in stderr.splitlines()):
+        raise AssertionError("the bench's GCN stage did not log OK")
+    if not any(ln.startswith("shard overhead mesh(1): ") and "; OK)" in ln
+               for ln in stderr.splitlines()):
+        raise AssertionError("the bench's shard stage did not log OK")
+    st = bench_stages(stderr)
+    for where, launches, names in (
+            ("headline", st["headline"]["launches"], ("spmm_bsr",)),
+            ("fwd+bwd", st["fwd_bwd"]["launches"], ("spmm_bsr",)),
+            ("max", st["max"]["launches"], ("spmm_minmax_v4",)),
+            ("density-rep v5", st["densrep"]["v5"]["launches"],
+             ("spmm_bsr", "spmm_stream")),
+            ("density-rep v2", st["densrep"]["v2"]["launches"],
+             ("spmm_v2",)),
+            ("shard", st["shard"]["launches_sharded"], ("spmm_bsr",)),
+            ("GCN", st["gcn"]["launches"], ("spmm_bsr",))):
+        needs_launches(f"bench {where}", launches, names)
+    return dict(line=line, stages=st)
+
+
+def check_bench_fused(stdout: str, stderr: str) -> dict:
+    """``python -m isplib_tpu_torch.bench_fused``'s output: two stdout lines
+    a pipeline, both errors (against the plain path evaluated in float64)
+    within ``BENCH_TOL``, the forward through K5 and the backward through
+    K6."""
+    st = bench_stages(stderr)
+    lines = stdout.splitlines()
+    if sorted(st) != ["sigmoid-embed", "tdist-force"] or len(lines) != 4:
+        raise AssertionError(f"bench_fused: pipelines {sorted(st)}, "
+                             f"{len(lines)} stdout lines")
+    for name, r in st.items():
+        mine = [ln for ln in lines if ln.startswith(f"{name:14s}:")]
+        if (len(mine) != 2 or f"relerr={r['relerr']:.1e}" not in mine[0]
+                or f"graderr={r['graderr']:.1e}" not in mine[1]):
+            raise AssertionError(f"bench_fused {name}: lines {mine}")
+        if not (r["relerr"] <= BENCH_TOL and r["graderr"] <= BENCH_TOL):
+            raise AssertionError(f"bench_fused {name}: relerr {r['relerr']}, "
+                                 f"graderr {r['graderr']} > {BENCH_TOL}")
+        needs_launches(f"bench_fused {name}", r["launches"], ("fused",))
+        needs_launches(f"bench_fused {name} fwd+bwd", r["launches_fwd_bwd"],
+                       ("fused", "fused_bwd"))
+    return st
+
+
+def run_bench(module: str, args: list[str], env: dict):
+    """``python -m module args`` from the checkout's root, its stderr
+    logged line by line; fails unless it exits 0."""
+    cmd = [sys.executable, "-m", module, *args]
+    log(f"phase 12: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=BENCH_TIMEOUT)
+    for ln in p.stderr.splitlines():
+        log(f"  {module.rsplit('.', 1)[1]} | {ln}")
+    for ln in p.stdout.splitlines():
+        log(f"  {module.rsplit('.', 1)[1]} stdout | {ln}")
+    if p.returncode != 0:
+        raise AssertionError(f"{module} exited {p.returncode}")
+    log(f"phase 12: {module} ran in {time.perf_counter() - t0:.1f}s")
+    return p
+
+
+def bench_paths(graphs, wholes):
+    """Phase 12: the bound of each graph's plan is one bound (phase 3's
+    whole-hybrid bound at K = 32 against the bench's
+    ``plan_bound_edges_per_s``, 1e-9 relative), then the two measuring
+    entry points as a user runs them, each in its own process with a
+    fresh graph, plan and tune cache: ``bench --iters 20`` at its default
+    scale 0.05 and ``bench_fused --iters 10``."""
+    t_phase = time.perf_counter()
+    for name, (_, _, tiled) in graphs.items():
+        want = wholes[name]["bound"][0]
+        got = tiled.nnz / plan_bound_edges_per_s(tiled, BENCH_K) * 1e3
+        if not abs(got - want) <= 1e-9 * want:
+            raise AssertionError(f"{name}: the bench's plan bound {got} ms "
+                                 f"vs phase 3's whole-hybrid {want} ms")
+        log(f"phase 12: {name} plan bound at K={BENCH_K} {got:.6f} ms, "
+            f"phase 3's whole-hybrid bound {want:.6f} ms")
+    torch.cuda.empty_cache()
+    scratch = tempfile.mkdtemp(prefix="isplib_tpu_torch_phase12_")
+    env = dict(os.environ,
+               ISPLIB_TPU_TORCH_CACHE_DIR=os.path.join(scratch, "plans"),
+               ISPLIB_TPU_TORCH_TUNE_CACHE=os.path.join(scratch, "tune.json"))
+    try:
+        p = run_bench("isplib_tpu_torch.bench", ["--iters", "20"], env)
+        b = check_bench(p.stdout, p.stderr)
+        p = run_bench("isplib_tpu_torch.bench_fused", ["--iters", "10"], env)
+        f = check_bench_fused(p.stdout, p.stderr)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    head = b["stages"]["headline"]
+    log(f"phase 12: bench line {json.dumps(b['line'])}; headline "
+        f"{head['ms']:.4f} ms (median {head['median_ms']:.4f}), GCN epoch "
+        f"{b['stages']['gcn']['epoch_ms']:.4f} ms; bench_fused errors "
+        + ", ".join(f"{n} {r['relerr']:.1e}/{r['graderr']:.1e} (the fp32 "
+                    f"plain path {r['plain_relerr']:.1e}/"
+                    f"{r['plain_graderr']:.1e})" for n, r in f.items()))
+    log(f"phase 12 (bench and bench_fused): "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+
 def graph_specs() -> list[tuple[str, int, int, int]]:
     """(name, nodes, edges, seed) of the two GCN-signal graphs, at
     bench.py's sizes: reddit at scale 0.05, and its density-representative
@@ -2254,10 +2379,8 @@ def smoke() -> int:
     from isplib_tpu_torch import (GCN, GIN, GraphSAGE, graph_from_arrays,
                                   run_model, train_node_classifier)
     from isplib_tpu_torch.data import NodeDataset, gen_gcnsig_graph
-    from isplib_tpu_torch.kernels import (build, fused, fused_bwd, sddmm,
-                                          spmm_bsr, spmm_bsr_v3, spmm_minmax,
-                                          spmm_minmax_v4, spmm_rowblock,
-                                          spmm_stream, spmm_v2)
+    from isplib_tpu_torch.bench import KERNELS, counted
+    from isplib_tpu_torch.kernels import build
     from isplib_tpu_torch.sparse.tiling import auto_tile
     from isplib_tpu_torch.train.loop import _loss_fn
 
@@ -2304,10 +2427,13 @@ def smoke() -> int:
     # ---- sum/mean kernels against their plain versions, and their times --
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
+    wholes = {}   # the forward hybrid SpMM at K = 32 per graph, for phase 12
     for name, (_, g, tiled) in graphs.items():
         for direction, k in ([("fwd", k) for k in KS + (K_WIDE,)]
                              + [("bwd", k) for k in KS]):
             rows, whole = check_and_time(name, g, tiled, direction, k, gen)
+            if (direction, k) == ("fwd", BENCH_K):
+                wholes[name] = whole
             cases += rows
             for r in rows:
                 log(f"{r['kernel']:12s} {name:11s} {direction} K={k}: "
@@ -2318,7 +2444,8 @@ def smoke() -> int:
                     + (f" from the float64 plain version (the fp32 one "
                        f"{r['plain_err']:.3g})" if "plain_err" in r else ""))
             log(f"hybrid       {name:11s} {direction} K={k}: "
-                f"{whole['hybrid_ms']:.4f} ms, whole-SpMM library "
+                f"{whole['hybrid_ms']:.4f} ms (bound {whole['bound'][0]:.4f}"
+                f" by {whole['bound'][1]}), whole-SpMM library "
                 f"{whole['library_ms']:.4f} ms, err vs fp32 reference "
                 f"{whole['max_abs_err']:.3g} (max |ref| "
                 f"{whole['max_abs_ref']:.3g})")
@@ -2336,19 +2463,11 @@ def smoke() -> int:
                     f"{r['walk']}")
 
     # ---- the paths ---------------------------------------------------------
-    kernels = {"spmm_bsr": spmm_bsr, "spmm_stream": spmm_stream,
-               "spmm_minmax_v4": spmm_minmax_v4, "sddmm": sddmm,
-               "fused": fused, "fused_bwd": fused_bwd, "spmm_v2": spmm_v2,
-               "spmm_minmax": spmm_minmax, "spmm_bsr_v3": spmm_bsr_v3,
-               "spmm_rowblock": spmm_rowblock}
-
     def drive(path, needs, fn):
         """Run ``fn`` with every launch count set to 0 just before it and
         read just after; fail unless each kernel in ``needs`` ran."""
-        for mod in kernels.values():
-            mod.LAUNCHES = 0
-        out = fn()
-        launches = {kn: mod.LAUNCHES for kn, mod in kernels.items()}
+        out, ran = counted(fn)
+        launches = {kn: ran.get(kn, 0) for kn in KERNELS}
         log(f"{path} launches: {launches}")
         for kname in needs:
             if launches[kname] <= 0:
@@ -2489,6 +2608,9 @@ def smoke() -> int:
 
     # ---- the main path on the full 114.6M-edge graph (K1, K2) -------------
     fullscale_path(drive, cases, gen)
+
+    # ---- the measuring entry points: bench and bench_fused ---------------
+    bench_paths(graphs, wholes)
 
     # ---- the kernel table, each kernel at K = 32 forward on the graph whose
     # edges it carries: the dense blocks of reddit-sim, the residual edges
