@@ -195,6 +195,23 @@
    and forward + backward, are at most 1e-4 relative; and every stage
    launched the kernels of its plans (the launch counts each bench logs
    in its last ``stages:`` line).
+13. The sweep, ``scripts/run_all.sh``'s counterpart, in this process:
+   ``run_all.sweep(0.02, 2, ...)`` (the shell's defaults) over its 48 rows
+   (datasets reddit, reddit2, protein, mag; backends pt1, xla → reference,
+   pallas → auto on v5 at 128; GCN, SAGE-sum, SAGE-mean ``--nopad``, GIN),
+   each row's launches counted by ``bench.counted``: every row finishes
+   with finite losses; every pallas row launches K2, and K1 where its plans
+   have residual edges; the pt1 and reference rows launch no kernel; each
+   pallas row's per-epoch losses are within 2e-2 relative of its reference
+   row's (the same seed and weights), and its TRG_ACC and TST_ACC within
+   0.02 (near chance on the stand-ins, so a weak check alone); each of the
+   four files holds 12 CSV rows.  Then the pallas rows' own plans at the widths the sweep gives
+   them that no other phase reaches, as the CLI loads them: mag's v5 plans
+   of A and Aᵀ at K = 349 (GCN's class width, odd: K1 reads a padded
+   copy) and reddit's plan of A at K = 640 (SAGE and GIN's padded width),
+   K2 and K1 each against its plain version and the hybrid SpMM against
+   the fp32 reference over ranges of rows (``check_and_time``).  The table
+   is logged.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line; every
@@ -254,6 +271,13 @@ BENCH_K = 32              # the bench's headline width (its default --k)
 BENCH_METRIC = "spmm_sum_edges_per_s_k32_reddit"
 BENCH_TOL = 1e-4          # bench_fused's errors, forward and backward
 BENCH_TIMEOUT = 600       # seconds each bench subprocess may take
+SWEEP_SCALE, SWEEP_EPOCHS = 0.02, 2   # scripts/run_all.sh's defaults
+SWEEP_LOSS_RTOL = 2e-2    # a pallas row's losses against its xla row's
+SWEEP_ACC_TOL = 0.02      # and its accuracies (near chance on the stand-ins,
+                          # so the losses are the check with teeth)
+# (dataset, direction, K) of the sweep's plans held to their plain versions
+SWEEP_WIDTHS = (("mag", "fwd", 349), ("mag", "bwd", 349),
+                ("reddit", "fwd", 640))
 
 
 def log(msg: str) -> None:
@@ -2338,6 +2362,124 @@ def bench_paths(graphs, wholes):
         f"{time.perf_counter() - t_phase:.1f}s")
 
 
+def csv_rows(path: str) -> list[list[float]]:
+    """The CSV rows (five numbers) of a sweep file."""
+    rows = []
+    for ln in open(path).read().splitlines():
+        try:
+            nums = [float(v) for v in ln.split(",")]
+        except ValueError:
+            continue
+        if len(nums) == 5:
+            rows.append(nums)
+    return rows
+
+
+def sweep_path():
+    """Phase 13: ``run_all.sweep`` at the shell script's defaults, all 48
+    rows, into a scratch directory."""
+    from isplib_tpu_torch import run_all
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="isplib_tpu_torch_phase13_")
+    try:
+        results = run_all.sweep(SWEEP_SCALE, SWEEP_EPOCHS, out)
+        files = {row.file: len(csv_rows(os.path.join(out, row.file)))
+                 for row in run_all.ROWS}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    want_rows = len(run_all.DATASETS) * len(run_all.BACKENDS) * len(
+        run_all.ROWS)
+    log(f"phase 13: {len(results)} rows (want {want_rows}); CSV rows by "
+        f"file {files}")
+    log("phase 13 | row | TRG_TM TRG_STD TST_TM TRG_ACC TST_ACC | launches "
+        "| fwd plan (thr, blocks, dense edges, residual edges) | peak GiB "
+        "| s")
+    for r in results:
+        res, p = r.result, (r.plan or {}).get("fwd")
+        nums = ("failed: " + str(r.error) if res is None else
+                f"{res.train_time_avg:.6g} {res.train_time_std:.6g} "
+                f"{res.test_time:.6g} {res.train_acc:.4f} {res.test_acc:.4f}")
+        plan = ("-" if p is None else f"{p['dense_threshold']}, {p['nb']}, "
+                f"{p['dense_edges']}, {p['sparse_edges']}")
+        log(f"phase 13 | {r.label} | {nums} | {r.launches} | {plan} | "
+            f"{r.peak_bytes / 2**30:.2f} | {r.seconds:.1f}")
+    if len(results) != want_rows:
+        raise AssertionError(f"phase 13: {len(results)} rows, not "
+                             f"{want_rows}")
+    failed = [r.label for r in results if r.result is None]
+    if failed:
+        raise AssertionError(f"phase 13: rows failed: {failed}")
+    for r in results:
+        if not np.all(np.isfinite(r.result.losses)):
+            raise AssertionError(f"{r.label}: losses {r.result.losses}")
+        if r.backend != "pallas":
+            if r.launches:
+                raise AssertionError(f"{r.label} launched {r.launches}")
+            continue
+        p = r.plan
+        needs = ["spmm_bsr"] + (["spmm_stream"] if p["fwd"]["sparse_edges"]
+                                or p["bwd"]["sparse_edges"] else [])
+        needs_launches(r.label, r.launches, needs)
+    ref = {(r.dataset, r.row): r.result for r in results
+           if r.backend == "xla"}
+    for r in results:
+        if r.backend != "pallas":
+            continue
+        want = ref[(r.dataset, r.row)]
+        got, exp = np.asarray(r.result.losses), np.asarray(want.losses)
+        gap = np.abs(got - exp) / np.abs(exp)
+        log(f"phase 13 {r.label}: losses {got.tolist()} vs the reference "
+            f"row's {exp.tolist()}, largest relative gap {gap.max():.3g}; "
+            f"accuracies {r.result.train_acc:.4f} / {r.result.test_acc:.4f} "
+            f"vs {want.train_acc:.4f} / {want.test_acc:.4f}")
+        if not (got.shape == exp.shape and gap.max() <= SWEEP_LOSS_RTOL):
+            raise AssertionError(f"{r.label}: losses {got.tolist()} left "
+                                 f"the reference row's {exp.tolist()} by "
+                                 f"{gap.max():.3g} > {SWEEP_LOSS_RTOL}")
+        for what in ("train_acc", "test_acc"):
+            a, b = getattr(r.result, what), getattr(want, what)
+            if not abs(a - b) <= SWEEP_ACC_TOL:
+                raise AssertionError(f"{r.label}: {what} {a} vs the "
+                                     f"reference row's {b}")
+    sweep_widths()
+    per_file = len(run_all.DATASETS) * len(run_all.BACKENDS)
+    if files != {row.file: per_file for row in run_all.ROWS}:
+        raise AssertionError(f"phase 13: CSV rows by file {files}, want "
+                             f"{per_file} each")
+    log(f"phase 13 (the sweep, {len(results)} rows): "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+
+def sweep_widths():
+    """Phase 13's kernel checks: each (dataset, direction, K) of
+    ``SWEEP_WIDTHS`` on the plans the sweep's pallas rows train on, loaded
+    as the CLI loads them, through ``check_and_time``."""
+    from isplib_tpu_torch import run_all, run_model
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for name in dict.fromkeys(d for d, _, _ in SWEEP_WIDTHS):
+        args = run_model.parser().parse_args(run_all.argv_of(
+            run_all.ROWS[0], name, "pallas", SWEEP_SCALE, SWEEP_EPOCHS,
+            "cuda"))
+        tiled = run_model.load_dataset(args).graph
+        for _, direction, k in (w for w in SWEEP_WIDTHS if w[0] == name):
+            rows, whole = check_and_time(f"{name}-sweep", tiled.graph, tiled,
+                                         direction, k, gen)
+            for r in rows:
+                log(f"phase 13 {r['kernel']:12s} {name} {direction} K={k}: "
+                    f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}), err "
+                    f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}")
+            log(f"phase 13 hybrid       {name} {direction} K={k}: "
+                f"{whole['hybrid_ms']:.4f} ms; err vs the fp32 reference "
+                f"by row ranges {whole['max_abs_err']:.3g} (max |ref| "
+                f"{whole['max_abs_ref']:.3g})")
+        del tiled
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def graph_specs() -> list[tuple[str, int, int, int]]:
     """(name, nodes, edges, seed) of the two GCN-signal graphs, at
     bench.py's sizes: reddit at scale 0.05, and its density-representative
@@ -2611,6 +2753,9 @@ def smoke() -> int:
 
     # ---- the measuring entry points: bench and bench_fused ---------------
     bench_paths(graphs, wholes)
+
+    # ---- the sweep: datasets x backends x models, 48 rows -----------------
+    sweep_path()
 
     # ---- the kernel table, each kernel at K = 32 forward on the graph whose
     # edges it carries: the dense blocks of reddit-sim, the residual edges

@@ -29,8 +29,8 @@ import torch
 from ..sparse.graph import from_edge_index, from_scipy
 from .synthetic import NodeDataset, rmat_dataset
 
-__all__ = ["load", "load_mtx", "pad_features", "DATASET_STATS",
-           "REAL_BUILTIN", "standin_seed"]
+__all__ = ["load", "load_mtx", "pad_features", "get_padding_size",
+           "DATASET_STATS", "REAL_BUILTIN", "standin_seed"]
 
 DATA_DIR = os.environ.get(
     "ISPLIB_DATA", os.path.join(os.path.expanduser("~"), "datasets", "isplib"))
@@ -69,11 +69,17 @@ def _load_npz(name: str, device, tiling) -> NodeDataset:
                        num_classes=int(y.max()) + 1)
 
 
-def pad_features(ds: NodeDataset) -> NodeDataset:
-    """Zero-pad the feature dimension up to a multiple of 128 (the JAX
-    package's lane width; the CLI does it unless ``--nopad``)."""
+def get_padding_size(n: int, multiple: int = 128) -> int:
+    """``n`` rounded up to a multiple of ``multiple`` (the JAX package's
+    lane width of 128 by default)."""
+    return -(-n // multiple) * multiple
+
+
+def pad_features(ds: NodeDataset, multiple: int = 128) -> NodeDataset:
+    """Zero-pad the feature dimension up to a multiple of ``multiple`` (the
+    CLI does it unless ``--nopad``)."""
     f = ds.x.shape[1]
-    target = -(-f // 128) * 128
+    target = get_padding_size(f, multiple)
     if target == f:
         return ds
     x = np.concatenate(

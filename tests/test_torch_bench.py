@@ -37,6 +37,17 @@ REPO = Path(__file__).resolve().parents[1]
 SMALL = ["--device", "cpu", "--scale", "0.002"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads, which the native graph and plan build also
+    takes, while this module runs: the suite runs several test files at
+    once, one a worker, and a wall-clock test may run beside this one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def caches(tmp_path, monkeypatch):
     """Fresh graph, plan and tune caches for the port."""

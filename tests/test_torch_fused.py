@@ -447,7 +447,8 @@ def test_port_imports_no_jax():
     package."""
     code = ("import sys, isplib_tpu_torch, isplib_tpu_torch.ops.fused, "
             "isplib_tpu_torch.kernels.sddmm, isplib_tpu_torch.kernels.fused,"
-            " isplib_tpu_torch.kernels.fused_bwd, isplib_tpu_torch.run_model;"
+            " isplib_tpu_torch.kernels.fused_bwd, isplib_tpu_torch.run_model,"
+            " isplib_tpu_torch.run_all;"
             " bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'isplib_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -48,6 +48,17 @@ GRAPH_FIELDS = ("rowptr", "row", "col", "value", "csc_colptr", "csc_row",
                 "csc_col", "csc_value", "csc2csr", "deg", "deg_t")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads, which the native graph and plan build also
+    takes, while this module runs: the suite runs several test files at
+    once, one a worker, and a wall-clock test may run beside this one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def coo(seed=0, num_rows=700, num_cols=650, nnz=9000, sort=True):
     """Half the edges in a 300x260 corner (dense blocks), half uniform, 500
     of them twice; CSR-sorted as a graph passes them, unless ``sort`` is

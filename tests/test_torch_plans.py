@@ -80,6 +80,17 @@ from isplib_tpu_torch.sparse.tiling_v3 import (HybridPlanV3,
 from isplib_tpu_torch.sparse.tiling_v5 import HybridPlan, build_hybrid_plan
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads, which the native graph and plan build also
+    takes, while this module runs: the suite runs several test files at
+    once, one a worker, and a wall-clock test may run beside this one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def coo(seed=0, num_rows=700, num_cols=650, nnz=9000):
     """Half the edges in a 300x260 corner (blocks above the thresholds),
     half uniform, 500 duplicated edges; CSR-sorted, as a graph passes

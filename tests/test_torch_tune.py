@@ -591,7 +591,8 @@ def test_port_imports_no_jax():
     assert len(files) > 30
     assert PORT / "interop" / "torch_bridge.py" in files
     assert PORT / "native" / "__init__.py" in files
-    for f in ("bench.py", "bench_fused.py", "utils/roofline.py"):
+    for f in ("bench.py", "bench_fused.py", "utils/roofline.py",
+              "run_all.py"):
         assert PORT / f in files
     files.append(PORT.parent / "chip_smoke.py")
     for f in files:
