@@ -212,6 +212,37 @@
    K2 and K1 each against its plain version and the hybrid SpMM against
    the fp32 reference over ranges of rows (``check_and_time``).  The table
    is logged.
+14. Full-size parity, run right after step 11 on its graph (reddit-full,
+   114.8M edges; ``fullsize_parity``), each part's seconds logged:
+   a. K2 and K1 against their plain versions (K1's evaluated in float64)
+      and the hybrid SpMM against the fp32 reference over ranges of rows,
+      on Aᵀ at K = 32 and 41 (GCN's backward), A at K = 41, 602
+      (GraphSAGE-mean ``--nopad`` and GIN's input width; odd, so K1 reads a
+      padded copy) and 640 (the sweep's padded width, five K tiles), every
+      column held; the plain versions run over chunks of features within
+      ``CHUNK_BYTES``;
+   c. K3 on the max/min plan, max and min at K = 32 and max at K = 602:
+      out bit for bit and arg exactly equal to the plain version and to
+      ``reference.spmm_arg_raw``, every column at K = 32 and the
+      ``mm_sample`` columns at K = 602 (at least 96: the ragged tail and
+      both sides of every K-tile boundary; at 114.8M edges each oracle
+      passes over the edges once a feature), logged with the walk; the
+      yardstick ``scatter_reduce_`` over slices of features, times summed;
+   d. GraphSAGE(602 → 32 → 41, max), ``FULL_MM_EPOCHS`` epochs through K3
+      (which must launch): the loss finite and falling, train accuracy
+      above 0.7; one forward + backward of the trained model through the
+      kernels against the reference path (a plain CSRGraph), the loss at
+      1e-4 relative and every parameter's gradient at 1e-4 of its scale;
+      the peak device memory;
+   e. the first ``DEFAULT_CONFIGS`` entry of versions 3, 2 and 1 built for
+      A by ``build_tiling_from_numpy`` (the native builder), each plan's
+      build seconds, device bytes and fill (v3's threshold after its byte
+      cap on a "plan build:" line); K9 and K8 on its residual, K8, and K10
+      against their plain versions at K = 32, and each whole SpMM against
+      the fp32 reference (2e-2 for v3, 1e-4·max|ref| for v2 and v1);
+   b. mag at scale 1.0, loaded as the sweep's pallas rows load it (its v5
+      plans at 128), through ``check_and_time`` on A and Aᵀ at K = 349.
+      The sweep's reddit is not drawn at 1.0; its K = 640 is part a's.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line; every
@@ -265,6 +296,21 @@ FUSED_STEPS = 20
 TUNE_ITERS = 10           # chain_time calls per configuration in the sweep
 FULL_EPOCHS = 30          # phase 11's GCN epochs on the full graph, each path
 REF_EDGES = 1 << 24       # edges a range of rows of the reference SpMM takes
+                          # (its feature chunks keep a range's temporaries
+                          # within CHUNK_BYTES at any K)
+FULL_MM_EPOCHS = EPOCHS   # phase 14's GraphSAGE-max epochs on the full graph
+                          # (~60 ms each), phase 5's, so its 0.7 check holds
+# phase 14's (direction, K) cases of K1, K2 and the hybrid on reddit-full:
+# GCN's backward widths, GraphSAGE-mean --nopad and GIN's input width (odd,
+# so K1 reads a padded copy) and the sweep's padded width (5 K tiles)
+FULL_WIDTHS = (("bwd", 32), ("bwd", 41), ("fwd", 41), ("fwd", 602),
+               ("fwd", 640))
+MAG_WIDTHS = (("fwd", 349), ("bwd", 349))   # the sweep's mag at scale 1.0
+FULL_MM = (("max", 32), ("min", 32), ("max", K_WIDE))   # K3 on reddit-full
+MM_FULL_COLS = 128        # K3's oracles hold every column up to this width
+MM_SAMPLE_EDGE = 8        # columns each side of a K-tile boundary above it
+MM_SAMPLE_MIN = 96        # columns a sample holds at least
+LIB_MSG_BYTES = 16 << 30  # the max/min yardstick's messages per slice
 SPIN_CYCLES = 4_000_000   # ~2 ms of the card's clock around a profiled call
 LEAD_KERNELS = 16         # small kernels that open a profiled window
 BENCH_K = 32              # the bench's headline width (its default --k)
@@ -377,9 +423,11 @@ def reference_by_rows(g, x):
     return out
 
 
-def check_and_time(name, graph, tiled, direction, k, gen):
+def check_and_time(name, graph, tiled, direction, k, gen, full=False):
     """One (graph, direction, K) case: both kernels against their plain
-    versions, the hybrid against the fp32 reference, and the timings."""
+    versions, the hybrid against the fp32 reference, and the timings
+    (``full``: the plain versions timed over 2 calls after 1, not 5 after
+    3, as at 114.8M edges one takes seconds)."""
     from isplib_tpu_torch.kernels import spmm_bsr, spmm_stream
     from isplib_tpu_torch.kernels.spmm_hybrid import spmm_hybrid
 
@@ -387,6 +435,7 @@ def check_and_time(name, graph, tiled, direction, k, gen):
     g = graph if direction == "fwd" else graph.transpose()
     x = torch.randn(plan.num_cols, k, device=gen.device, generator=gen)
     rows = []
+    plain_iters = dict(iters=2, warmup=1) if full else dict(iters=5)
 
     # ---- K2: dense blocks -------------------------------------------------
     got = spmm_bsr.spmm_bsr(plan, x)
@@ -403,7 +452,8 @@ def check_and_time(name, graph, tiled, direction, k, gen):
         kernel="spmm_bsr", graph=name, direction=direction, k=k,
         max_abs_err=err2, tol=tol2,
         ms=cuda_ms(lambda: spmm_bsr.spmm_bsr(plan, x)),
-        plain_ms=cuda_ms(lambda: spmm_bsr.spmm_bsr_plain(plan, x), iters=5),
+        plain_ms=cuda_ms(lambda: spmm_bsr.spmm_bsr_plain(plan, x),
+                         **plain_iters),
         library_ms=cuda_ms(lambda: torch.sparse.mm(lib_d, x)),
         bound=bound_ms(
             plan.nb * 128 * 128 * 2 + (plan.n_br + 1 + plan.nb) * 4
@@ -436,7 +486,7 @@ def check_and_time(name, graph, tiled, direction, k, gen):
         ms=cuda_ms(lambda: spmm_stream.spmm_stream(plan, x, got1)),
         plain_ms=cuda_ms(lambda: spmm_stream.spmm_stream_plain(plan, x,
                                                                  want1),
-                         iters=5),
+                         **plain_iters),
         library_ms=cuda_ms(lambda: torch.sparse.mm(lib_r, x)),
         bound=bound_ms(
             plan.sparse_edges * 8 + (plan.num_rows + 1) * 4
@@ -462,25 +512,83 @@ def check_and_time(name, graph, tiled, direction, k, gen):
     return rows, whole
 
 
-def check_and_time_minmax(name, graph, tiled, reduce, k, gen):
+def mm_sample(k: int, tile: int = 128) -> list[int] | None:
+    """The columns of a (R, K) max/min output that phase 14 holds to the
+    oracles: None (every column) up to ``MM_FULL_COLS``; above it the first
+    2·``MM_SAMPLE_EDGE``, ``MM_SAMPLE_EDGE`` on each side of every K-tile
+    boundary of the walk (a multiple of ``tile``), and the last
+    3·``MM_SAMPLE_EDGE``, the ragged tail past the last whole tile."""
+    if k <= MM_FULL_COLS:
+        return None
+    e = MM_SAMPLE_EDGE
+    cols = set(range(min(2 * e, k))) | set(range(max(k - 3 * e, 0), k))
+    for b in range(tile, k, tile):
+        cols |= set(range(b - e, min(b + e, k)))
+    return sorted(cols)
+
+
+def timed(fn):
+    """``(fn(), ms)``: one call on the card's clock (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def minmax_library_ms(graph, x, reduce, iters, warmup):
+    """The max/min yardstick: ``scatter_reduce_`` of precomputed (E, w)
+    messages (values only, no winning ids: no PyTorch call returns them),
+    over slices of features whose messages take at most ``LIB_MSG_BYTES``
+    (one slice on the 5.7M-edge graphs), the slices' times summed."""
+    n, k = graph.nnz, x.shape[1]
+    rows = graph.row[:n].long()
+    width = max(1, LIB_MSG_BYTES // (n * 4))
+    total = 0.0
+    for k0 in range(0, k, width):
+        msgs = graph.value[:n, None] * x[:, k0:k0 + width].index_select(
+            0, graph.col[:n])
+        idx = rows[:, None].expand_as(msgs)
+        part = torch.zeros(graph.num_rows, msgs.shape[1], device=x.device)
+        total += cuda_ms(lambda: part.scatter_reduce_(
+            0, idx, msgs, "amax" if reduce == "max" else "amin",
+            include_self=False), iters=iters, warmup=warmup)
+        del msgs, idx, part
+    return total
+
+
+def check_and_time_minmax(name, graph, tiled, reduce, k, gen, full=False):
     """One (graph, reduce, K) case of the max/min kernel: against its plain
     version bit for bit, against the reference path as numbers, and the
-    timings."""
+    timings.  ``full`` (phase 14, 114.8M edges, where both oracles pass
+    over the edges once a feature): above ``MM_FULL_COLS`` the oracles
+    hold the ``mm_sample`` columns of the kernel's full-width output, each
+    called on those columns of x (a column's max/min depends on that
+    column alone); the plain version's time is that of its checked call,
+    on the columns it held."""
     from isplib_tpu_torch.kernels import spmm_minmax_v4 as k3
     from isplib_tpu_torch.ops import reference
 
     plan, sentinel = tiled.fwd_mm, graph.nnz_padded - 1
     x = torch.randn(graph.num_cols, k, device=gen.device, generator=gen)
+    cols = mm_sample(k) if full else None
+    xs = x if cols is None else x[:, cols].contiguous()
 
     def kernel():
         return k3.spmm_minmax_v4(plan, graph.col, graph.value, x, reduce,
                                  sentinel)
 
     def plain():
-        return k3.spmm_minmax_v4_plain(plan, graph.col, graph.value, x,
+        return k3.spmm_minmax_v4_plain(plan, graph.col, graph.value, xs,
                                        reduce, sentinel)
 
-    (out, arg), (pout, parg) = kernel(), plain()
+    out, arg = kernel()
+    (pout, parg), plain_ms = timed(plain)
+    if cols is not None:
+        sel = torch.tensor(cols, device=x.device)
+        out, arg = out.index_select(1, sel), arg.index_select(1, sel)
     torch.cuda.synchronize()
     bad_bits = int((out.view(torch.int32) != pout.view(torch.int32)).sum())
     bad_args = int((arg != parg).sum())
@@ -490,35 +598,42 @@ def check_and_time_minmax(name, graph, tiled, reduce, k, gen):
                              f"{bad_bits} values differ in their bits, "
                              f"{bad_args} args differ (max err {err})")
     rout, rarg = reference.spmm_arg_raw(graph.row, graph.col, graph.value,
-                                        graph.deg, x, graph.num_rows, reduce)
+                                        graph.deg, xs, graph.num_rows,
+                                        reduce)
     if not (bool((out == rout).all()) and torch.equal(arg, rarg)):
         raise AssertionError(f"spmm_minmax_v4 {name}/{reduce}/K={k} differs "
                              "from the reference path")
-    del pout, parg, rout, rarg
+    del out, arg, pout, parg, rout, rarg
 
-    # the yardstick: one PyTorch call for the values only, its (E, K)
-    # messages precomputed outside the timed region
     n = graph.nnz
-    msgs = graph.value[:n, None] * x.index_select(0, graph.col[:n])
-    idx = graph.row[:n].long()[:, None].expand(-1, k)
-    lib_out = torch.zeros(graph.num_rows, k, device=x.device)
-    lib_ms = cuda_ms(lambda: lib_out.scatter_reduce_(
-        0, idx, msgs, "amax" if reduce == "max" else "amin",
-        include_self=False))
-    del msgs, lib_out
-
     used_cols = int(torch.unique(graph.col[:n]).numel())
     wide = k > 64
     return dict(
         kernel="spmm_minmax_v4", graph=name, reduce=reduce, k=k,
         max_abs_err=err, walk=walk_line(plan.sched, n),
+        cols=len(cols) if cols is not None else k,
         ms=cuda_ms(kernel, iters=10 if wide else 30),
-        plain_ms=cuda_ms(plain, iters=2 if wide else 5, warmup=1),
-        library_ms=lib_ms,
+        plain_ms=(plain_ms if full else cuda_ms(
+            plain, iters=2 if wide else 5, warmup=1)),
+        library_ms=minmax_library_ms(
+            graph, x, reduce, *((1, 0) if full else (30, 3))),
         bound=bound_ms(
             (graph.num_rows + 1) * 4 + n * 8 + (2 * plan.nseg + 1) * 4
             + used_cols * k * 4 + graph.num_rows * k * 8,
             2.0 * n * k, FP32_FLOPS))
+
+
+def drive(path, needs, fn):
+    """Run ``fn`` with every launch count set to 0 just before it and read
+    just after; fail unless each kernel in ``needs`` ran."""
+    from isplib_tpu_torch.bench import KERNELS, counted
+    out, ran = counted(fn)
+    launches = {kn: ran.get(kn, 0) for kn in KERNELS}
+    log(f"{path} launches: {launches}")
+    for kname in needs:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} never launched on {path}")
+    return out, launches
 
 
 def walk_line(s, edges: int) -> str:
@@ -2110,7 +2225,8 @@ def fullscale_path(drive, cases, gen):
     ``FULL_EPOCHS`` epochs through K1 + K2 and the same epochs on the
     reference path, the two loss curves within 2e-2 at every epoch, the
     trained model's loss through the kernels against the reference path
-    at 2e-2, train accuracy above 0.7; the peak device memory."""
+    at 2e-2, train accuracy above 0.7; the peak device memory.  Returns
+    the graph, ``(host arrays, CSRGraph, TiledGraph)``, for phase 14."""
     from isplib_tpu_torch import GCN, graph_from_arrays, train_node_classifier
     from isplib_tpu_torch.data import NodeDataset, gen_gcnsig_graph
     from isplib_tpu_torch.sparse.tiling import auto_tile
@@ -2148,18 +2264,7 @@ def fullscale_path(drive, cases, gen):
 
     rows, whole = check_and_time("reddit-full", g, tiled, "fwd", 32, gen)
     cases += rows
-    for r in rows:
-        log(f"{r['kernel']:12s} reddit-full fwd K=32: {r['ms']:.4f} ms "
-            f"(plain {r['plain_ms']:.3f}, library {r['library_ms']:.4f}, "
-            f"bound {r['bound'][0]:.4f} by {r['bound'][1]}), err "
-            f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}")
-    log(f"hybrid       reddit-full fwd K=32: {whole['hybrid_ms']:.4f} ms, "
-        f"bound {whole['bound'][0]:.4f} by {whole['bound'][1]} "
-        f"({100 * whole['bound'][0] / whole['hybrid_ms']:.1f}% of it), "
-        f"{g.nnz / whole['hybrid_ms'] / 1e6:.3f} Gedges/s; whole-SpMM "
-        f"library {whole['library_ms']:.4f} ms; err vs the fp32 reference "
-        f"by row ranges {whole['max_abs_err']:.3g} (max |ref| "
-        f"{whole['max_abs_ref']:.3g})")
+    log_sum_case("reddit-full", "fwd", 32, rows, whole)
 
     def dataset(graph):
         return NodeDataset(name="reddit-full", graph=graph, x=arrays["x"],
@@ -2219,11 +2324,245 @@ def fullscale_path(drive, cases, gen):
                              f"kernels {l_kernel} vs reference {l_ref}")
     log(f"reddit-full peak device memory (max_memory_allocated): "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del x, y, mask, model, ref_model, tiled, g, arrays
+    del x, y, mask, model, ref_model, res, ref
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 11 (the main path on the full graph): "
         f"{time.perf_counter() - t_phase:.1f}s")
+    return arrays, g, tiled
+
+
+def log_sum_case(name, direction, k, rows, whole):
+    """The lines of one ``check_and_time`` case: each kernel's ms, plain,
+    library and bound (and its share of the bound), the hybrid's."""
+    for r in rows:
+        log(f"{r['kernel']:12s} {name} {direction} K={k}: {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.3f}, library {r['library_ms']:.4f}, "
+            f"bound {r['bound'][0]:.4f} by {r['bound'][1]}, "
+            f"{100 * r['bound'][0] / r['ms']:.1f}% of it), err "
+            f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}"
+            + (f" from the float64 plain version (the fp32 one "
+               f"{r['plain_err']:.3g})" if "plain_err" in r else ""))
+    log(f"hybrid       {name} {direction} K={k}: {whole['hybrid_ms']:.4f} "
+        f"ms (bound {whole['bound'][0]:.4f} by {whole['bound'][1]}, "
+        f"{100 * whole['bound'][0] / whole['hybrid_ms']:.1f}% of it), "
+        f"whole-SpMM library {whole['library_ms']:.4f} ms; err vs the fp32 "
+        f"reference by row ranges {whole['max_abs_err']:.3g} (max |ref| "
+        f"{whole['max_abs_ref']:.3g})")
+
+
+def fullsize_parity(cases, full, gen):
+    """Phase 14: the kernels held to their plain versions at the sizes the
+    entry points run them, on phase 11's graph ``full`` (host arrays,
+    CSRGraph, TiledGraph of reddit-full), then on mag at scale 1.0:
+    a. K2 and K1 against their plain versions and the hybrid against the
+       fp32 reference by row ranges, ``FULL_WIDTHS`` on reddit-full;
+    c. K3, ``FULL_MM``, bit for bit against its plain version and equal to
+       the reference path (above ``MM_FULL_COLS``, the ``mm_sample``
+       columns);
+    d. GraphSAGE-max (602 → 32 → 41) trained ``FULL_MM_EPOCHS`` epochs
+       through K3, then one forward + backward of the trained model
+       through the kernels against the reference path (loss 1e-4
+       relative, each gradient 1e-4 of its scale);
+    e. the first ``DEFAULT_CONFIGS`` entry of versions 3, 2 and 1 built for
+       A (host build seconds, device bytes, fill), K9 + K8, K8 and K10
+       against their plain versions and each whole SpMM against the fp32
+       reference at K = 32;
+    b. mag at scale 1.0 as the sweep's pallas rows load it, ``MAG_WIDTHS``
+       through ``check_and_time``.
+    Appends the kernel cases to ``cases``."""
+    from isplib_tpu_torch import (GraphSAGE, run_all, run_model,
+                                  train_node_classifier)
+    from isplib_tpu_torch.data import NodeDataset
+    from isplib_tpu_torch.kernels.spmm_hybrid import run_plan
+    from isplib_tpu_torch.sparse.tiling import build_tiling_from_numpy
+    from isplib_tpu_torch.train.loop import _loss_fn
+    from isplib_tpu_torch.tune.autotune import DEFAULT_CONFIGS
+
+    t_phase = time.perf_counter()
+    arrays, g, tiled = full
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- a. K1, K2 and the hybrid at the entry points' widths -------------
+    t0 = time.perf_counter()
+    for direction, k in FULL_WIDTHS:
+        t1 = time.perf_counter()
+        rows, whole = check_and_time("reddit-full", g, tiled, direction, k,
+                                     gen, full=True)
+        cases += rows
+        log_sum_case("reddit-full", direction, k, rows, whole)
+        log(f"phase 14a reddit-full {direction} K={k}: "
+            f"{time.perf_counter() - t1:.1f}s")
+    log(f"phase 14a (K1, K2, hybrid on reddit-full): "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- c. K3, max and min ---------------------------------------------
+    t0 = time.perf_counter()
+    for reduce, k in FULL_MM:
+        t1 = time.perf_counter()
+        r = check_and_time_minmax("reddit-full", g, tiled, reduce, k, gen,
+                                  full=True)
+        if r["cols"] < min(k, MM_SAMPLE_MIN):
+            raise AssertionError(f"K3 K={k}: a sample of {r['cols']} columns")
+        cases.append(r)
+        log(f"spmm_minmax_v4 reddit-full {reduce} K={k}: {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.3f} on {r['cols']} columns, library "
+            f"values-only {r['library_ms']:.4f}, bound {r['bound'][0]:.4f} "
+            f"by {r['bound'][1]}); bit-exact on "
+            + ("every column" if r["cols"] == k else
+               f"the columns {mm_sample(k)}")
+            + f"; {r['walk']}; {time.perf_counter() - t1:.1f}s")
+    log(f"phase 14c (K3 on reddit-full): {time.perf_counter() - t0:.1f}s")
+
+    # ---- d. GraphSAGE-max through K3 ------------------------------------
+    t0 = time.perf_counter()
+    model = GraphSAGE(FEATURES, 32, CLASSES, aggr="max", seed=0)
+    ds = NodeDataset(name="reddit-full", graph=tiled, x=arrays["x"],
+                     y=arrays["y"], train_mask=arrays["train_mask"],
+                     val_mask=arrays["train_mask"],
+                     test_mask=arrays["test_mask"], num_classes=CLASSES)
+    res, _ = drive("GraphSAGE-max full-scale path", ("spmm_minmax_v4",),
+                   lambda: train_node_classifier(model, ds,
+                                                 epochs=FULL_MM_EPOCHS))
+    log(f"reddit-full GraphSAGE-max(602-32-41) through the kernels, "
+        f"{FULL_MM_EPOCHS} epochs:\n{res.table()}")
+    log(f"reddit-full GraphSAGE-max: epoch {res.train_time_avg * 1e3:.3f} "
+        f"ms (std {res.train_time_std * 1e3:.3f}), eval "
+        f"{res.test_time * 1e3:.3f} ms; loss {res.losses[0]:.5f} -> "
+        f"{res.losses[-1]:.5f}; train acc {res.train_acc:.4f}, test acc "
+        f"{res.test_acc:.4f}; {time.perf_counter() - t0:.1f}s")
+    if not (np.all(np.isfinite(res.losses))
+            and res.losses[-1] < res.losses[0]):
+        raise AssertionError(f"reddit-full GraphSAGE-max: loss not finite "
+                             f"or not falling: {res.losses}")
+    if not res.train_acc > 0.7:
+        raise AssertionError(f"reddit-full GraphSAGE-max: train accuracy "
+                             f"{res.train_acc} <= 0.7")
+    x = torch.from_numpy(arrays["x"]).cuda()
+    y = torch.from_numpy(arrays["y"]).cuda()
+    mask = torch.from_numpy(arrays["train_mask"]).cuda()
+    model.eval()
+
+    def loss_and_grads(graph, backend):
+        model.zero_grad(set_to_none=True)
+        loss = _loss_fn(model(graph, x, backend=backend), y, mask, "nll")
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    (l_k, g_k), ms_k = timed(lambda: loss_and_grads(tiled, None))
+    (l_r, g_r), ms_r = timed(lambda: loss_and_grads(g, "reference"))
+    gap = abs(l_k - l_r) / abs(l_r)
+    log(f"reddit-full GraphSAGE-max trained, one forward + backward: loss "
+        f"through the kernels {l_k:.7f} ({ms_k:.1f} ms), reference path "
+        f"{l_r:.7f} ({ms_r:.1f} ms), relative gap {gap:.3g}")
+    if not gap <= 1e-4:
+        raise AssertionError(f"reddit-full GraphSAGE-max: loss through the "
+                             f"kernels {l_k} vs reference {l_r}")
+    for pname, want in g_r.items():
+        err = float((g_k[pname] - want).abs().max())
+        scale = float(want.abs().max())
+        log(f"  grad {pname} {tuple(want.shape)}: max err {err:.3g}, scale "
+            f"{scale:.3g}")
+        if not (bool(torch.isfinite(g_k[pname]).all())
+                and err <= 1e-4 * scale):
+            raise AssertionError(f"reddit-full GraphSAGE-max: grad {pname} "
+                                 f"max err {err} > 1e-4 * {scale}")
+    log(f"phase 14d (GraphSAGE-max on reddit-full): "
+        f"{time.perf_counter() - t0:.1f}s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del x, y, mask, model, ds, res, g_k, g_r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- e. plan versions 3, 2 and 1 of A --------------------------------
+    t0 = time.perf_counter()
+    firsts = {}
+    for cfg in DEFAULT_CONFIGS:
+        firsts.setdefault(cfg["version"], cfg)
+    x = torch.randn(g.num_cols, 32, device=gen.device, generator=gen)
+    ref = reference_by_rows(g, x)
+    scale = float(ref.abs().max())
+    for version in (3, 2, 1):
+        cfg = firsts[version]
+        tag = " ".join(f"{f}={v}" for f, v in cfg.items())
+        t1 = time.perf_counter()
+        tg = build_tiling_from_numpy(g, arrays, k=32, build_backward=False,
+                                     **cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        plan = tg.fwd
+        log(f"reddit-full {tag}: plan of A (with the max/min lists) built "
+            f"in {build_s:.2f}s, {plan_bytes(plan) / 2**30:.3f} GiB on the "
+            f"card, fill {plan.fill:.4f}"
+            + (f"; {plan.dense_edges} dense edges in {plan.bsr.nb} members "
+               f"({plan.bsr.sched.n_real} real), {plan.sparse_edges} "
+               f"residual" if version == 3 else ""))
+        if version == 3:
+            rows = [check_and_time_v3("reddit-full", "fwd", plan.bsr, g, 32,
+                                      gen),
+                    check_and_time_v2("reddit-full", "v3 residual",
+                                      plan.residual, 32, gen)]
+        elif version == 2:
+            rows = [check_and_time_v2("reddit-full", "v2 fwd", plan, 32,
+                                      gen)]
+        else:
+            rows = [check_and_time_v1("reddit-full", "fwd", plan, g, 32,
+                                      gen)]
+        cases += rows
+        for r in rows:
+            log(f"{r['kernel']:12s} reddit-full {tag} K=32: {r['ms']:.4f} "
+                f"ms (plain {r['plain_ms']:.3f}, library "
+                f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} by "
+                f"{r['bound'][1]}), err {r['max_abs_err']:.3g} <= "
+                f"{r['tol']:.3g}")
+        out = run_plan(plan, x)
+        err = float((out - ref).abs().max())
+        ok = bool(torch.isfinite(out).all()) and (
+            torch.allclose(out, ref, rtol=2e-2, atol=2e-2 * scale)
+            if version == 3 else err <= 1e-4 * scale)
+        if not ok:
+            raise AssertionError(f"reddit-full {tag}: max err {err} vs the "
+                                 f"fp32 reference (max |ref| {scale})")
+        log(f"spmm         reddit-full {tag} K=32: "
+            f"{cuda_ms(lambda: run_plan(plan, x)):.4f} ms, err vs the fp32 "
+            f"reference {err:.3g} (max |ref| {scale:.3g}); "
+            f"{time.perf_counter() - t1:.1f}s")
+        del tg, plan, out, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+    del x, ref
+    log(f"phase 14e (plan versions 1-3 on reddit-full): "
+        f"{time.perf_counter() - t0:.1f}s")
+    log(f"phase 14 on reddit-full: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del arrays, g, tiled, full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- b. mag at scale 1.0, loaded as the sweep's pallas rows ----------
+    t0 = time.perf_counter()
+    log("phase 14b: the sweep's reddit at scale 1.0 is not drawn (a second "
+        "114.6M-edge draw on the host): its K = 640 runs on reddit-full's "
+        "plan (14a)")
+    args = run_model.parser().parse_args(run_all.argv_of(
+        run_all.ROWS[0], "mag", "pallas", 1.0, SWEEP_EPOCHS, "cuda"))
+    mag = run_model.load_dataset(args).graph
+    torch.cuda.synchronize()
+    log(f"mag at scale 1.0: {mag.num_rows} nodes, {mag.nnz} edges, loaded "
+        f"and tiled in {time.perf_counter() - t0:.1f}s; v5 plan of A: "
+        f"threshold {mag.fwd.dense_threshold}, {mag.fwd.dense_edges} dense "
+        f"edges in {mag.fwd.nb} blocks, {mag.fwd.sparse_edges} residual")
+    for direction, k in MAG_WIDTHS:
+        rows, whole = check_and_time("mag-full", mag.graph, mag, direction,
+                                     k, gen, full=True)
+        cases += rows
+        log_sum_case("mag-full", direction, k, rows, whole)
+    del mag
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14b (mag at scale 1.0): {time.perf_counter() - t0:.1f}s")
+    log(f"phase 14 (full-size parity): {time.perf_counter() - t_phase:.1f}s")
 
 
 def bench_stages(stderr: str) -> dict:
@@ -2467,14 +2806,7 @@ def sweep_widths():
         for _, direction, k in (w for w in SWEEP_WIDTHS if w[0] == name):
             rows, whole = check_and_time(f"{name}-sweep", tiled.graph, tiled,
                                          direction, k, gen)
-            for r in rows:
-                log(f"phase 13 {r['kernel']:12s} {name} {direction} K={k}: "
-                    f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}), err "
-                    f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}")
-            log(f"phase 13 hybrid       {name} {direction} K={k}: "
-                f"{whole['hybrid_ms']:.4f} ms; err vs the fp32 reference "
-                f"by row ranges {whole['max_abs_err']:.3g} (max |ref| "
-                f"{whole['max_abs_ref']:.3g})")
+            log_sum_case(f"phase 13 {name}", direction, k, rows, whole)
         del tiled
         gc.collect()
         torch.cuda.empty_cache()
@@ -2521,7 +2853,6 @@ def smoke() -> int:
     from isplib_tpu_torch import (GCN, GIN, GraphSAGE, graph_from_arrays,
                                   run_model, train_node_classifier)
     from isplib_tpu_torch.data import NodeDataset, gen_gcnsig_graph
-    from isplib_tpu_torch.bench import KERNELS, counted
     from isplib_tpu_torch.kernels import build
     from isplib_tpu_torch.sparse.tiling import auto_tile
     from isplib_tpu_torch.train.loop import _loss_fn
@@ -2577,20 +2908,7 @@ def smoke() -> int:
             if (direction, k) == ("fwd", BENCH_K):
                 wholes[name] = whole
             cases += rows
-            for r in rows:
-                log(f"{r['kernel']:12s} {name:11s} {direction} K={k}: "
-                    f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
-                    f"library {r['library_ms']:.4f}, bound "
-                    f"{r['bound'][0]:.4f} by {r['bound'][1]}), err "
-                    f"{r['max_abs_err']:.3g} <= {r['tol']:.3g}"
-                    + (f" from the float64 plain version (the fp32 one "
-                       f"{r['plain_err']:.3g})" if "plain_err" in r else ""))
-            log(f"hybrid       {name:11s} {direction} K={k}: "
-                f"{whole['hybrid_ms']:.4f} ms (bound {whole['bound'][0]:.4f}"
-                f" by {whole['bound'][1]}), whole-SpMM library "
-                f"{whole['library_ms']:.4f} ms, err vs fp32 reference "
-                f"{whole['max_abs_err']:.3g} (max |ref| "
-                f"{whole['max_abs_ref']:.3g})")
+            log_sum_case(f"{name:11s}", direction, k, rows, whole)
 
     # ---- the max/min kernel against its plain version, and its times ------
     for name, (_, g, tiled) in graphs.items():
@@ -2605,17 +2923,6 @@ def smoke() -> int:
                     f"{r['walk']}")
 
     # ---- the paths ---------------------------------------------------------
-    def drive(path, needs, fn):
-        """Run ``fn`` with every launch count set to 0 just before it and
-        read just after; fail unless each kernel in ``needs`` ran."""
-        out, ran = counted(fn)
-        launches = {kn: ran.get(kn, 0) for kn in KERNELS}
-        log(f"{path} launches: {launches}")
-        for kname in needs:
-            if launches[kname] <= 0:
-                raise AssertionError(f"{kname} never launched on {path}")
-        return out, launches
-
     def dataset(name, graph=None):
         arrays, _, tiled = graphs[name]
         return NodeDataset(name=name, graph=tiled if graph is None else graph,
@@ -2748,8 +3055,9 @@ def smoke() -> int:
     # ---- interop and the training tools (K1/K2 through the bridge, K3) ----
     interop_paths(graphs, drive, dataset, gen)
 
-    # ---- the main path on the full 114.6M-edge graph (K1, K2) -------------
-    fullscale_path(drive, cases, gen)
+    # ---- the main path on the full 114.6M-edge graph (K1, K2), then ---------
+    # every kernel of the entry points at full size, on that graph
+    fullsize_parity(cases, fullscale_path(drive, cases, gen), gen)
 
     # ---- the measuring entry points: bench and bench_fused ---------------
     bench_paths(graphs, wholes)

@@ -16,6 +16,7 @@ import functools
 
 import torch
 
+from ..ops.reference import _SUM_EDGE_FEATURE_BYTES, _chunks
 from ..sparse.tiling_v5 import BS, HybridPlan
 from . import build
 
@@ -39,7 +40,8 @@ def _check(plan: HybridPlan, x: torch.Tensor) -> None:
 
 def spmm_bsr_plain(plan: HybridPlan, x: torch.Tensor) -> torch.Tensor:
     """The dense half in plain PyTorch: bf16 blocks times bf16-rounded x,
-    products and sums in fp32."""
+    products and sums in fp32, over chunks of features whose (blocks, 128,
+    chunk) temporaries stay within ``CHUNK_BYTES``."""
     k = x.shape[1]
     n_br = plan.n_br
     out = x.new_zeros(n_br * BS, k)
@@ -47,12 +49,16 @@ def spmm_bsr_plain(plan: HybridPlan, x: torch.Tensor) -> torch.Tensor:
         n_bc = -(-plan.num_cols // BS)
         xb = x.new_zeros(n_bc * BS, k)
         xb[: plan.num_cols] = x.to(torch.bfloat16).float()
-        xg = xb.view(n_bc, BS, k).index_select(0, plan.blk_col)
-        prod = torch.bmm(plan.blocks.float(), xg)              # (nb, 128, k)
+        xb = xb.view(n_bc, BS, k)
+        blocks = plan.blocks.float()
         br = torch.repeat_interleave(
             torch.arange(n_br, device=x.device),
             plan.blk_rowptr.diff().long())
-        out.view(n_br, BS, k).index_add_(0, br, prod)
+        for feats in _chunks(plan.nb * BS, k, _SUM_EDGE_FEATURE_BYTES,
+                             x.element_size()):
+            xg = xb[:, :, feats].index_select(0, plan.blk_col)
+            out.view(n_br, BS, k)[:, :, feats].index_add_(
+                0, br, torch.bmm(blocks, xg))              # (nb, 128, chunk)
     return out[: plan.num_rows]
 
 

@@ -47,7 +47,8 @@ def spmm_rowblock_plain(plan: TiledPlan, x: torch.Tensor) -> torch.Tensor:
     s = plan.slots()
     keep = s["val"] != 0
     row, col, val = s["row"][keep], s["col"][keep], s["val"][keep]
-    for feats in _chunks(row.shape[0], x.shape[1], _SUM_EDGE_FEATURE_BYTES):
+    for feats in _chunks(row.shape[0], x.shape[1], _SUM_EDGE_FEATURE_BYTES,
+                         x.element_size()):
         out[:, feats] = out[:, feats].index_add(
             0, row, val[:, None] * x[:, feats].index_select(0, col))
     return out

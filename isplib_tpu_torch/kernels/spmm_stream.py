@@ -19,6 +19,7 @@ import functools
 
 import torch
 
+from ..ops.reference import _SUM_EDGE_FEATURE_BYTES, _chunks
 from ..sparse.tiling_v5 import HybridPlan
 from . import build
 from .minmax_walk import pitched
@@ -48,21 +49,28 @@ def _check(plan: HybridPlan, x: torch.Tensor, out: torch.Tensor) -> None:
 
 def spmm_stream_plain(plan: HybridPlan, x: torch.Tensor,
                       out: torch.Tensor) -> None:
-    """``out += residual edges @ x`` in plain PyTorch, fp32."""
+    """``out += residual edges @ x`` in plain PyTorch, in x's precision,
+    over chunks of features whose (residual edges, chunk) temporaries stay
+    within ``CHUNK_BYTES``.  Each output column is a sum over the same
+    edges in the same order as in one piece."""
     rows = torch.repeat_interleave(
         torch.arange(plan.num_rows, device=x.device),
         plan.res_rowptr.diff().long())
-    out.index_add_(0, rows,
-                   plan.res_val[:, None] * x.index_select(0, plan.res_col))
+    col, val = plan.res_col, plan.res_val[:, None]
+    for feats in _chunks(col.shape[0], x.shape[1], _SUM_EDGE_FEATURE_BYTES,
+                         x.element_size()):
+        out[:, feats].index_add_(
+            0, rows, val * x[:, feats].index_select(0, col))
 
 
 def spmm_stream_oracle(plan: HybridPlan, x: torch.Tensor,
                        out: torch.Tensor) -> torch.Tensor:
     """``out + residual edges @ x`` evaluated in float64, a new float64
-    tensor (``out`` is left as it is).  The fp32 plain version sums by
-    ``index_add_`` in a run-to-run order on a card, as the kernel's split
-    rows do; in float64 the oracle's own rounding stays out of the
-    comparison."""
+    tensor (``out`` is left as it is), its temporaries within
+    ``CHUNK_BYTES`` as the plain version's are.  The fp32 plain version
+    sums by ``index_add_`` in a run-to-run order on a card, as the
+    kernel's split rows do; in float64 the oracle's own rounding stays out
+    of the comparison."""
     want = out.to(torch.float64, copy=True)
     spmm_stream_plain(plan, x.double(), want)
     return want

@@ -38,7 +38,8 @@ __all__ = ["spmm_raw", "spmm_arg_raw", "sddmm_dot_raw", "gather_rows",
            "vop_apply", "fused_edge_scalars", "fused_mm_raw", "CHUNK_BYTES"]
 
 CHUNK_BYTES = 2 << 30  # bytes of per-edge temporaries one chunk may take
-# temporaries per edge and feature: the gathered x rows and their products
+# temporaries per edge and feature: the gathered x rows and their products,
+# in fp32 (``_chunks`` scales them to the operand's element size)
 _SUM_EDGE_FEATURE_BYTES = 8
 # the arg path's: products, their compared copy, the tie mask and two int64
 # id tensors
@@ -57,10 +58,15 @@ def _pad_row(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(1, x.shape[1])], dim=0)
 
 
-def _chunks(nnz_padded: int, k: int, edge_feature_bytes: int) -> list[slice]:
+def _chunks(nnz_padded: int, k: int, edge_feature_bytes: int,
+            itemsize: int = 4) -> list[slice]:
     """Feature slices whose temporaries of ``edge_feature_bytes`` per edge
-    and feature stay within ``CHUNK_BYTES`` (at least one feature each)."""
-    width = max(1, CHUNK_BYTES // max(nnz_padded * edge_feature_bytes, 1))
+    and feature stay within ``CHUNK_BYTES`` (at least one feature each).
+    ``edge_feature_bytes`` counts fp32 temporaries; ``itemsize`` is the
+    element size of the operand they are made of (8 scales them for
+    float64)."""
+    per = edge_feature_bytes * itemsize // 4
+    width = max(1, CHUNK_BYTES // max(nnz_padded * per, 1))
     return [slice(k0, min(k0 + width, k)) for k0 in range(0, k, width)]
 
 
@@ -89,7 +95,8 @@ def spmm_raw(
     reduce = Reduce.of(reduce)
     x_pad = _pad_row(x)
     outs = []
-    for feats in _chunks(col.shape[0], x.shape[1], _SUM_EDGE_FEATURE_BYTES):
+    for feats in _chunks(col.shape[0], x.shape[1], _SUM_EDGE_FEATURE_BYTES,
+                         x.element_size()):
         contrib = _contrib(col, value, x_pad, feats)
         w = contrib.shape[1]
         if reduce in (Reduce.SUM, Reduce.MEAN):

@@ -292,6 +292,10 @@ def build_plan_v3_arrays(
             thr *= 2
         dense_b = counts >= thr
         dense_edges = int(counts[dense_b].sum())
+        _log.info("v3 dense threshold %d (asked %d) after the %.0f GiB block "
+                  "cap: %d blocks, %d dense edges of %d", thr,
+                  dense_threshold, MAX_BLOCK_BYTES / 2**30, nb, dense_edges,
+                  nnz)
     if dense_edges:
         dense_bids = np.flatnonzero(dense_b)
         br, bc = dense_bids // n_bc, dense_bids % n_bc
@@ -310,6 +314,9 @@ def build_plan_v3_arrays(
         new_pos = starts_g[cell] + np.arange(dense_bids.shape[0]) - starts[
             cell]
         nb = int(starts_g[-1])
+        _log.info("v3 dense half: %d members with the group pads of g = %d "
+                  "(%d cells), %.3f GiB of bf16 blocks", nb, g,
+                  int(np.count_nonzero(cnt)), nb * BS * BS * 2 / 2**30)
         rank = np.full(n_br * n_bc, -1, np.int64)
         rank[dense_bids] = new_pos
 
