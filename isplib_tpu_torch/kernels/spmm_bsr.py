@@ -18,6 +18,7 @@ import torch
 
 from ..ops.reference import _SUM_EDGE_FEATURE_BYTES, _chunks
 from ..sparse.tiling_v5 import BS, HybridPlan
+from ..utils.profiling import span
 from . import build
 
 __all__ = ["spmm_bsr", "spmm_bsr_plain", "LAUNCHES"]
@@ -79,29 +80,30 @@ def spmm_bsr(plan: HybridPlan, x: torch.Tensor) -> torch.Tensor:
     in ``LAUNCHES``: a pre-pass that rounds x to bf16 into a scratch and
     zeroes the block-rows the walk does not store whole, then the walk."""
     global LAUNCHES
-    _check(plan, x)
-    if x.device.type == "cpu":
-        return spmm_bsr_plain(plan, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"spmm_bsr runs on cuda or cpu, not {x.device}")
-    k = x.shape[1]
-    if plan.nb == 0 or k == 0:
-        return x.new_zeros(plan.num_rows, k)
-    if plan.sched is None:
-        raise ValueError("the plan has no K2 schedule: build it with "
-                         "build_hybrid_plan")
-    s = plan.sched
-    out = torch.empty(plan.num_rows, k, dtype=torch.float32,
-                      device=x.device)
-    xb = torch.empty(-(-plan.num_cols // BS) * BS, -(-k // 8) * 8,
-                     dtype=torch.bfloat16, device=x.device)
-    err = _lib()(plan.blocks.data_ptr(), s.members.data_ptr(),
-                 s.pieces.data_ptr(), s.zero_rbs.data_ptr(), x.data_ptr(),
-                 xb.data_ptr(), out.data_ptr(), s.n_pieces,
-                 s.zero_rbs.shape[0], plan.num_rows, plan.num_cols,
-                 xb.shape[0], k, x.device.index,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"spmm_bsr launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return out
+    with span("isplib.K2"):
+        _check(plan, x)
+        if x.device.type == "cpu":
+            return spmm_bsr_plain(plan, x)
+        if x.device.type != "cuda":
+            raise ValueError(f"spmm_bsr runs on cuda or cpu, not {x.device}")
+        k = x.shape[1]
+        if plan.nb == 0 or k == 0:
+            return x.new_zeros(plan.num_rows, k)
+        if plan.sched is None:
+            raise ValueError("the plan has no K2 schedule: build it with "
+                             "build_hybrid_plan")
+        s = plan.sched
+        out = torch.empty(plan.num_rows, k, dtype=torch.float32,
+                          device=x.device)
+        xb = torch.empty(-(-plan.num_cols // BS) * BS, -(-k // 8) * 8,
+                         dtype=torch.bfloat16, device=x.device)
+        err = _lib()(plan.blocks.data_ptr(), s.members.data_ptr(),
+                     s.pieces.data_ptr(), s.zero_rbs.data_ptr(), x.data_ptr(),
+                     xb.data_ptr(), out.data_ptr(), s.n_pieces,
+                     s.zero_rbs.shape[0], plan.num_rows, plan.num_cols,
+                     xb.shape[0], k, x.device.index,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"spmm_bsr launch failed: CUDA error {err}")
+        LAUNCHES += 1
+        return out

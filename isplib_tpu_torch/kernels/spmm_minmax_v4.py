@@ -23,6 +23,7 @@ import torch
 from ..ops.reference import _ARG_EDGE_FEATURE_BYTES, _chunks
 from ..ops.semiring import Reduce
 from ..sparse.tiling_v4mm import MinMaxPlan
+from ..utils.profiling import span
 from . import build
 from .minmax_walk import Args, launch_args, pitched
 
@@ -117,31 +118,36 @@ def spmm_minmax_v4(plan: MinMaxPlan, col: torch.Tensor, value: torch.Tensor,
     scratch), the walk, the split rows' decode.  An odd K reads a copy of
     x padded to a multiple of 4."""
     global LAUNCHES
-    negate = _negate(reduce)
-    _check(plan, col, value, x, sentinel)
-    if x.device.type == "cpu":
-        return spmm_minmax_v4_plain(plan, col, value, x, reduce, sentinel)
-    if x.device.type != "cuda":
-        raise ValueError(f"spmm_minmax_v4 runs on cuda or cpu, not "
-                         f"{x.device}")
-    if plan.sched is None:
-        raise ValueError("the plan has no K3 schedule: build it with "
-                         "build_minmax_plan(..., schedule=True) or "
-                         "build_tiling")
-    k = x.shape[1]
-    out = torch.empty(plan.num_rows, k, dtype=torch.float32, device=x.device)
-    arg = torch.empty(plan.num_rows, k, dtype=torch.int32, device=x.device)
-    if plan.num_rows == 0 or k == 0:
+    with span("isplib.K3"):
+        negate = _negate(reduce)
+        _check(plan, col, value, x, sentinel)
+        if x.device.type == "cpu":
+            return spmm_minmax_v4_plain(plan, col, value, x, reduce, sentinel)
+        if x.device.type != "cuda":
+            raise ValueError(f"spmm_minmax_v4 runs on cuda or cpu, not "
+                             f"{x.device}")
+        if plan.sched is None:
+            raise ValueError("the plan has no K3 schedule: build it with "
+                             "build_minmax_plan(..., schedule=True) or "
+                             "build_tiling")
+        k = x.shape[1]
+        out = torch.empty(plan.num_rows, k, dtype=torch.float32,
+                          device=x.device)
+        arg = torch.empty(plan.num_rows, k, dtype=torch.int32,
+                          device=x.device)
+        if plan.num_rows == 0 or k == 0:
+            return out, arg
+        s = plan.sched
+        scratch = torch.empty(s.nsplit, k, dtype=torch.int64,
+                              device=x.device)
+        x = pitched(x)
+        args = launch_args(s, x, out, arg, scratch, plan.num_rows,
+                           plan.num_cols, k, negate, sentinel)
+        err = _lib()(col.data_ptr(), value.data_ptr(), ctypes.byref(args),
+                     x.device.index,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"spmm_minmax_v4 launch failed: CUDA error "
+                               f"{err}")
+        LAUNCHES += 1
         return out, arg
-    s = plan.sched
-    scratch = torch.empty(s.nsplit, k, dtype=torch.int64, device=x.device)
-    x = pitched(x)
-    args = launch_args(s, x, out, arg, scratch, plan.num_rows,
-                       plan.num_cols, k, negate, sentinel)
-    err = _lib()(col.data_ptr(), value.data_ptr(), ctypes.byref(args),
-                 x.device.index,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"spmm_minmax_v4 launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return out, arg

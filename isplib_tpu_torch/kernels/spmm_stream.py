@@ -21,6 +21,7 @@ import torch
 
 from ..ops.reference import _SUM_EDGE_FEATURE_BYTES, _chunks
 from ..sparse.tiling_v5 import HybridPlan
+from ..utils.profiling import span
 from . import build
 from .minmax_walk import pitched
 
@@ -88,20 +89,22 @@ def _lib():
 def spmm_stream(plan: HybridPlan, x: torch.Tensor, out: torch.Tensor) -> None:
     """``out (num_rows, K) += residual edges @ x``, in place."""
     global LAUNCHES
-    _check(plan, x, out)
-    if x.device.type == "cpu":
-        spmm_stream_plain(plan, x, out)
-        return
-    if x.device.type != "cuda":
-        raise ValueError(f"spmm_stream runs on cuda or cpu, not {x.device}")
-    if plan.nseg == 0 or x.shape[1] == 0:
-        return
-    xp = pitched(x)
-    err = _lib()(plan.res_rowptr.data_ptr(), plan.res_col.data_ptr(),
-                 plan.res_val.data_ptr(), plan.seg_ptr.data_ptr(),
-                 plan.seg_row.data_ptr(), xp.data_ptr(), out.data_ptr(),
-                 plan.nseg, x.shape[1], xp.stride(0), x.device.index,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"spmm_stream launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    with span("isplib.K1"):
+        _check(plan, x, out)
+        if x.device.type == "cpu":
+            spmm_stream_plain(plan, x, out)
+            return
+        if x.device.type != "cuda":
+            raise ValueError(f"spmm_stream runs on cuda or cpu, not "
+                             f"{x.device}")
+        if plan.nseg == 0 or x.shape[1] == 0:
+            return
+        xp = pitched(x)
+        err = _lib()(plan.res_rowptr.data_ptr(), plan.res_col.data_ptr(),
+                     plan.res_val.data_ptr(), plan.seg_ptr.data_ptr(),
+                     plan.seg_row.data_ptr(), xp.data_ptr(), out.data_ptr(),
+                     plan.nseg, x.shape[1], xp.stride(0), x.device.index,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"spmm_stream launch failed: CUDA error {err}")
+        LAUNCHES += 1

@@ -7,14 +7,18 @@ from __future__ import annotations
 import numpy as np
 
 from ..sparse.graph import CSRGraph, from_edge_index
+from ..utils.profiling import stage
 
 __all__ = ["add_self_loops", "gcn_norm", "row_normalize"]
 
 
 def _coo(graph: CSRGraph):
     n = graph.nnz
-    return (graph.row[:n].cpu().numpy(), graph.col[:n].cpu().numpy(),
-            graph.value[:n].detach().cpu().numpy())
+    with stage("norm.readback", bytes=n * (graph.row.element_size()
+                                           + graph.col.element_size()
+                                           + graph.value.element_size())):
+        return (graph.row[:n].cpu().numpy(), graph.col[:n].cpu().numpy(),
+                graph.value[:n].detach().cpu().numpy())
 
 
 def add_self_loops(graph: CSRGraph, fill_value: float = 1.0,
@@ -37,17 +41,19 @@ def add_self_loops(graph: CSRGraph, fill_value: float = 1.0,
 def gcn_norm(graph: CSRGraph, add_loops: bool = True,
              edge_multiple: int = 512) -> CSRGraph:
     """Â = D^{-1/2} (A + I) D^{-1/2}, PyG ``gcn_norm`` semantics."""
-    if add_loops:
-        graph = add_self_loops(graph, 1.0, edge_multiple)
-    row, col, val = _coo(graph)
-    deg = np.zeros(graph.num_rows, np.float64)
-    np.add.at(deg, row, val.astype(np.float64))
-    dinv = 1.0 / np.sqrt(np.maximum(deg, 1e-12))
-    dinv[deg <= 0] = 0.0
-    new_val = (dinv[row] * val * dinv[col]).astype(np.float32)
-    return from_edge_index(np.stack([col, row]), num_nodes=graph.num_rows,
-                           edge_value=new_val, edge_multiple=edge_multiple,
-                           device=graph.device)
+    with stage("norm.gcn", nnz=graph.nnz):
+        if add_loops:
+            graph = add_self_loops(graph, 1.0, edge_multiple)
+        row, col, val = _coo(graph)
+        deg = np.zeros(graph.num_rows, np.float64)
+        np.add.at(deg, row, val.astype(np.float64))
+        dinv = 1.0 / np.sqrt(np.maximum(deg, 1e-12))
+        dinv[deg <= 0] = 0.0
+        new_val = (dinv[row] * val * dinv[col]).astype(np.float32)
+        return from_edge_index(np.stack([col, row]),
+                               num_nodes=graph.num_rows, edge_value=new_val,
+                               edge_multiple=edge_multiple,
+                               device=graph.device)
 
 
 def row_normalize(graph: CSRGraph, edge_multiple: int = 512) -> CSRGraph:

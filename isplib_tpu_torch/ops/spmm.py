@@ -36,6 +36,7 @@ from ..kernels import sddmm as k4
 from ..kernels import spmm_hybrid, spmm_minmax_v4
 from ..sparse.graph import CSRGraph
 from ..sparse.tiling import TiledGraph, auto_tile, base_graph
+from ..utils.profiling import span
 from . import reference
 from .semiring import Reduce
 
@@ -125,19 +126,20 @@ class SpMM(torch.autograd.Function):
             # Flat indices (col of the winner) * K + feature address the
             # (C + 1, K) gradient, whose last row takes the empty rows'
             # sentinel (a pad edge of column C).
-            k = x.shape[1]
-            arg = arg.long().reshape(-1)
-            flat = (base.col.long()[arg].view(-1, k) * k
-                    + torch.arange(k, device=x.device)).reshape(-1)
-            g_flat = g.reshape(-1)
-            if need_x:
-                grad_x = x.new_zeros((base.num_cols + 1) * k).index_add_(
-                    0, flat, value.to(g.dtype)[arg] * g_flat)
-                grad_x = grad_x.view(base.num_cols + 1, k)[: base.num_cols]
-            if need_v:
-                x_pad = torch.cat([x, x.new_zeros(1, k)]).reshape(-1)
-                grad_v = value.new_zeros(base.nnz_padded, dtype=g.dtype)
-                grad_v.index_add_(0, arg, x_pad[flat] * g_flat)
+            with span("isplib.route"):
+                k = x.shape[1]
+                arg = arg.long().reshape(-1)
+                flat = (base.col.long()[arg].view(-1, k) * k
+                        + torch.arange(k, device=x.device)).reshape(-1)
+                g_flat = g.reshape(-1)
+                if need_x:
+                    grad_x = x.new_zeros((base.num_cols + 1) * k).index_add_(
+                        0, flat, value.to(g.dtype)[arg] * g_flat)
+                    grad_x = grad_x.view(base.num_cols + 1, k)[: base.num_cols]
+                if need_v:
+                    x_pad = torch.cat([x, x.new_zeros(1, k)]).reshape(-1)
+                    grad_v = value.new_zeros(base.nnz_padded, dtype=g.dtype)
+                    grad_v.index_add_(0, arg, x_pad[flat] * g_flat)
         if grad_v is not None:
             grad_v = grad_v.to(value.dtype)
             grad_v[base.nnz:] = 0  # pad edges, incl. the arg sentinel

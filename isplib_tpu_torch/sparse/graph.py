@@ -23,6 +23,7 @@ import torch
 
 from .. import native
 from ..device import resolve_device
+from ..utils.profiling import stage
 
 __all__ = ["CSRGraph", "from_edge_index", "from_scipy", "graph_from_arrays"]
 
@@ -138,10 +139,11 @@ def _build_arrays(
         value = np.asarray(value, dtype=np.float32)
 
     if nnz:
-        if native.available():
-            perm = native.sort_csr(row, col, num_rows, num_cols)[0]
-        else:
-            perm = np.lexsort((col, row))  # CSR order: last key is primary
+        with stage("graph.sort", order="csr", nnz=nnz):
+            if native.available():
+                perm = native.sort_csr(row, col, num_rows, num_cols)[0]
+            else:
+                perm = np.lexsort((col, row))  # CSR order: last key first
         row, col, value = row[perm], col[perm], value[perm]
 
     # at least one pad edge: edge id nnz_padded-1 is the inert sentinel
@@ -156,11 +158,12 @@ def _build_arrays(
     rowptr[1:] = np.cumsum(counts)
 
     # stable sort by column keeps pad edges (col == num_cols) at the end
-    if native.available():
-        csc_perm = native.sort_csr(col_p, row_p, num_cols + 1,
-                                   num_rows + 1)[0]
-    else:
-        csc_perm = np.lexsort((row_p, col_p))
+    with stage("graph.sort", order="csc", nnz=nnz):
+        if native.available():
+            csc_perm = native.sort_csr(col_p, row_p, num_cols + 1,
+                                       num_rows + 1)[0]
+        else:
+            csc_perm = np.lexsort((row_p, col_p))
     col_counts = (np.bincount(col, minlength=num_cols) if nnz
                   else np.zeros(num_cols, dtype=np.int64))
     csc_colptr = np.zeros(num_cols + 1, dtype=np.int64)
@@ -189,8 +192,9 @@ def graph_from_arrays(arrays: dict,
     """CSRGraph on ``device`` from a ``_build_arrays`` dict (extra keys,
     e.g. a dataset's features, are ignored)."""
     dev = resolve_device(device)
-    fields = {f: torch.from_numpy(np.ascontiguousarray(arrays[f])).to(dev)
-              for f in _ARRAY_FIELDS}
+    host = {f: np.ascontiguousarray(arrays[f]) for f in _ARRAY_FIELDS}
+    with stage("graph.upload", bytes=sum(a.nbytes for a in host.values())):
+        fields = {f: torch.from_numpy(a).to(dev) for f, a in host.items()}
     return CSRGraph(**fields, num_rows=int(arrays["num_rows"]),
                     num_cols=int(arrays["num_cols"]), nnz=int(arrays["nnz"]))
 
@@ -217,9 +221,11 @@ def from_edge_index(
     if num_nodes is None:
         num_nodes = int(max(row.max(initial=-1), col.max(initial=-1)) + 1)
     num_cols = num_src_nodes if num_src_nodes is not None else num_nodes
-    arrays = _build_arrays(row, col, edge_value, num_nodes, num_cols,
-                           edge_multiple)
-    return _finalize(arrays, device, tiling)
+    with stage("graph.build", nnz=int(row.shape[0]), rows=int(num_nodes),
+               cols=int(num_cols)):
+        arrays = _build_arrays(row, col, edge_value, num_nodes, num_cols,
+                               edge_multiple)
+        return _finalize(arrays, device, tiling)
 
 
 def from_scipy(mat, edge_multiple: int = 512,
@@ -228,10 +234,12 @@ def from_scipy(mat, edge_multiple: int = 512,
     """Build from any scipy.sparse matrix (e.g. loaded from a .mtx file);
     ``tiling`` as in :func:`from_edge_index`."""
     coo = mat.tocoo()
-    arrays = _build_arrays(coo.row, coo.col, coo.data.astype(np.float32),
-                           int(coo.shape[0]), int(coo.shape[1]),
-                           edge_multiple)
-    return _finalize(arrays, device, tiling)
+    with stage("graph.build", nnz=int(coo.nnz), rows=int(coo.shape[0]),
+               cols=int(coo.shape[1])):
+        arrays = _build_arrays(coo.row, coo.col, coo.data.astype(np.float32),
+                               int(coo.shape[0]), int(coo.shape[1]),
+                               edge_multiple)
+        return _finalize(arrays, device, tiling)
 
 
 def _finalize(arrays: dict, device, tiling: Optional[dict]):

@@ -20,10 +20,11 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Optional
 
 import torch
+
+from ..utils.profiling import stage
 
 __all__ = ["MinMaxSchedule", "derive_walk", "ITEM_EDGES"]
 
@@ -75,31 +76,32 @@ def derive_walk(ref: torch.Tensor, row: torch.Tensor, num_rows: int, *,
         raise ValueError(f"{ref.shape[0]} edges: the int32 refs overflow")
     from .tiling_v2 import row_items
 
-    t0 = time.perf_counter()
-    if ids is not None:  # by id, and stably by row in row_items
-        o = torch.argsort(ids, stable=True)
-        ref, row = ref[o], row[o]
-    it = row_items(row, ref, num_rows, item_edges)
-    seg_ptr, seg_row = it["seg_ptr"].long(), it["seg_row"].long()
-    lo, hi, order = seg_ptr[:-1], seg_ptr[1:], it["order"]
-    if refs_are_positions:  # an item is a run of CSR positions
-        o = order.long()
-        lo, hi = o[lo], o[hi - 1] + 1
-        order = None
-    split_rows = torch.unique_consecutive(
-        seg_row[1:][seg_row[1:] == seg_row[:-1]])
-    row_slot = torch.full((num_rows,), -1, dtype=torch.int64,
-                          device=ref.device)
-    row_slot[split_rows] = torch.arange(split_rows.shape[0],
-                                        device=ref.device)
-    s = MinMaxSchedule(
-        order=None if order is None else _i32(order),
-        items=_i32(torch.stack([lo, hi, seg_row], 1)),
-        row_slot=_i32(row_slot), split_rows=_i32(split_rows),
-        zero_rows=_i32(torch.nonzero(it["row_ptr"].diff() == 0).flatten()),
-        item_edges=int(item_edges))
+    with stage("plan.sched", kind=label) as st:
+        if ids is not None:  # by id, and stably by row in row_items
+            o = torch.argsort(ids, stable=True)
+            ref, row = ref[o], row[o]
+        it = row_items(row, ref, num_rows, item_edges)
+        seg_ptr, seg_row = it["seg_ptr"].long(), it["seg_row"].long()
+        lo, hi, order = seg_ptr[:-1], seg_ptr[1:], it["order"]
+        if refs_are_positions:  # an item is a run of CSR positions
+            o = order.long()
+            lo, hi = o[lo], o[hi - 1] + 1
+            order = None
+        split_rows = torch.unique_consecutive(
+            seg_row[1:][seg_row[1:] == seg_row[:-1]])
+        row_slot = torch.full((num_rows,), -1, dtype=torch.int64,
+                              device=ref.device)
+        row_slot[split_rows] = torch.arange(split_rows.shape[0],
+                                            device=ref.device)
+        s = MinMaxSchedule(
+            order=None if order is None else _i32(order),
+            items=_i32(torch.stack([lo, hi, seg_row], 1)),
+            row_slot=_i32(row_slot), split_rows=_i32(split_rows),
+            zero_rows=_i32(
+                torch.nonzero(it["row_ptr"].diff() == 0).flatten()),
+            item_edges=int(item_edges))
     _log.info("%s schedule: %d edges in %d items of <= %d; %d split rows, "
               "%d rows without edges; derived in %.3fs", label,
               ref.shape[0], s.nseg, item_edges, s.nsplit,
-              s.zero_rows.shape[0], time.perf_counter() - t0)
+              s.zero_rows.shape[0], st.seconds)
     return s

@@ -34,8 +34,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import sys
-import time
 import weakref
 from typing import Optional, Union
 
@@ -44,6 +42,7 @@ import torch
 
 from .. import native
 from ..device import resolve_device
+from ..utils import profiling
 from .graph import CSRGraph
 from .tiling_v2 import TiledPlanV2, build_plan_v2_arrays, row_items
 from .tiling_v3 import HybridPlanV3, build_plan_v3_arrays
@@ -245,11 +244,11 @@ def _v1_plan(edges, rb_ids, ct_ids, chunk_starts, rb, ct, eb, num_rows,
                      ct_ids=i32(ct_ids), chunk_starts=i32(chunk_starts),
                      rb=rb, ct=ct, eb=eb, nc=nc, num_rows=num_rows,
                      num_cols=num_cols, fill=fill)
-    t0 = time.perf_counter()
-    plan = dataclasses.replace(plan, sched=derive_row_schedule(plan))
+    with profiling.stage("plan.sched", kind="v1") as st:
+        plan = dataclasses.replace(plan, sched=derive_row_schedule(plan))
     _log.info("v1 schedule: %d real slots of %d in %d segments; derived in "
               "%.3fs", plan.sched.order.shape[0], nc * eb, plan.sched.nseg,
-              time.perf_counter() - t0)
+              st.seconds)
     return plan
 
 
@@ -363,7 +362,23 @@ def build_tiling_from_numpy(graph: CSRGraph, arrays: dict, version: int = 5,
     and v3 plans' superblocks.  ``cache_tag`` persists the built plans under
     that graph tag, or loads them when they are there
     (:mod:`isplib_tpu_torch.sparse.plan_cache`).
+
+    The call is a ``plan.build`` stage (``utils.profiling``); each
+    direction's sum plan is a stage ``plan.v<version>`` and each segment
+    work list a ``plan.mm``.
     """
+    with _plan_stage(version, k, plan_kwargs) as st:
+        tiled, st.attrs["cached"] = _build_from_numpy(
+            graph, arrays, version, k, build_backward, cache_tag, cache_dir,
+            plan_kwargs)
+    return tiled
+
+
+def _build_from_numpy(graph: CSRGraph, arrays: dict, version: int, k: int,
+                      build_backward: bool, cache_tag: Optional[str],
+                      cache_dir: Optional[str], plan_kwargs: dict):
+    """The body of :func:`build_tiling_from_numpy`: the tiled graph, and
+    whether its plans came from the plan cache."""
     _check_plan_keys(version, plan_kwargs)
     nnz = graph.nnz
     plans = cache_path = None
@@ -374,28 +389,48 @@ def build_tiling_from_numpy(graph: CSRGraph, arrays: dict, version: int = 5,
         plans = load_host_plans(cache_path)
         if plans is not None:
             plans = tree_to(plans, graph.device)
+    cached = plans is not None
     if plans is None:
         build = _build_fn(version, k, plan_kwargs, graph.device)
-        t0 = time.perf_counter()
-        fwd = build(arrays["row"][:nnz], arrays["col"][:nnz],
-                    arrays["value"][:nnz], graph.num_rows, graph.num_cols)
-        t1 = time.perf_counter()
-        bwd = build(arrays["csc_row"][:nnz], arrays["csc_col"][:nnz],
-                    arrays["csc_value"][:nnz], graph.num_cols,
-                    graph.num_rows) if build_backward else None
+        fwd, t_fwd = _sum_plan(
+            build, version, "A", arrays["row"][:nnz], arrays["col"][:nnz],
+            arrays["value"][:nnz], graph.num_rows, graph.num_cols)
+        bwd, t_bwd = _sum_plan(
+            build, version, "AT", arrays["csc_row"][:nnz],
+            arrays["csc_col"][:nnz], arrays["csc_value"][:nnz],
+            graph.num_cols, graph.num_rows) if build_backward else (None, 0.0)
         _log.info("version %d plan of A built in %.3fs, of Aᵀ in %.3fs",
-                  version, t1 - t0, time.perf_counter() - t1)
-        plans = dict(
-            fwd=fwd, bwd=bwd,
-            fwd_mm=build_minmax_plan(arrays["rowptr"], graph.num_rows,
-                                     graph.num_cols, graph.device,
-                                     schedule=True),
-            bwd_mm=build_minmax_plan(arrays["csc_colptr"], graph.num_cols,
-                                     graph.num_rows, graph.device))
+                  version, t_fwd, t_bwd)
+        with profiling.stage("plan.mm", direction="A", schedule=True):
+            fwd_mm = build_minmax_plan(arrays["rowptr"], graph.num_rows,
+                                       graph.num_cols, graph.device,
+                                       schedule=True)
+        with profiling.stage("plan.mm", direction="AT", schedule=False):
+            bwd_mm = build_minmax_plan(arrays["csc_colptr"], graph.num_cols,
+                                       graph.num_rows, graph.device)
+        plans = dict(fwd=fwd, bwd=bwd, fwd_mm=fwd_mm, bwd_mm=bwd_mm)
         if cache_path is not None:
             from .plan_cache import save_host_plans
             save_host_plans(cache_path, plans)
-    return TiledGraph(graph=graph, **plans)
+    return TiledGraph(graph=graph, **plans), cached
+
+
+def _plan_stage(version: int, k: int, plan_kwargs: dict):
+    """A ``plan.build`` stage of this version and configuration."""
+    return profiling.stage("plan.build", version=version, k=k,
+                           cfg=dict(plan_kwargs))
+
+
+def _sum_plan(build, version: int, direction: str, row, col, val,
+              num_rows: int, num_cols: int):
+    """One direction's sum plan as the stage ``plan.v<version>``, and its
+    seconds."""
+    with profiling.stage(f"plan.v{version}", direction=direction) as st:
+        plan = build(row, col, val, num_rows, num_cols)
+        if isinstance(plan, HybridPlan):
+            st.attrs.update(blocks=plan.nb, dense_edges=plan.dense_edges,
+                            residual_edges=plan.sparse_edges)
+    return plan, st.seconds
 
 
 def _cache_path(graph, arrays, version, k, build_backward, cache_tag,
@@ -424,10 +459,13 @@ def save_tiling(tiled: TiledGraph, arrays: dict, version: int, k: int,
 
 
 def host_arrays(graph: CSRGraph) -> dict:
-    """The graph's edge arrays read back to the host, as numpy."""
-    return {f: getattr(graph, f).cpu().numpy()
-            for f in ("rowptr", "row", "col", "value", "csc_colptr",
-                      "csc_row", "csc_col", "csc_value")}
+    """The graph's edge arrays read back to the host, as numpy (a
+    ``plan.readback`` stage)."""
+    fields = ("rowptr", "row", "col", "value", "csc_colptr", "csc_row",
+              "csc_col", "csc_value")
+    with profiling.stage("plan.readback", bytes=sum(
+            getattr(graph, f).nbytes for f in fields)):
+        return {f: getattr(graph, f).cpu().numpy() for f in fields}
 
 
 def build_tiling(graph: CSRGraph, version: int = 5, k: int = 32,
@@ -436,11 +474,13 @@ def build_tiling(graph: CSRGraph, version: int = 5, k: int = 32,
                  cache_dir: Optional[str] = None,
                  **plan_kwargs) -> TiledGraph:
     """Attach the plans, reading the graph's edge arrays back to the host
-    (arguments as :func:`build_tiling_from_numpy`)."""
-    return build_tiling_from_numpy(
-        graph, host_arrays(graph), version=version, k=k,
-        build_backward=build_backward, cache_tag=cache_tag,
-        cache_dir=cache_dir, **plan_kwargs)
+    (arguments as :func:`build_tiling_from_numpy`); the read back and the
+    build are one ``plan.build`` stage."""
+    with _plan_stage(version, k, plan_kwargs) as st:
+        tiled, st.attrs["cached"] = _build_from_numpy(
+            graph, host_arrays(graph), version, k, build_backward, cache_tag,
+            cache_dir, plan_kwargs)
+    return tiled
 
 
 # auto_tile's memo, per graph identity: the plan key of each K bucket, and
@@ -508,8 +548,8 @@ def auto_tile(graph, k: int = 32):
         plan_key = (version, tuple(sorted(cfg.items())),
                     bucket if version in (2, 3) else None)
         if plan_key not in memo["plans"]:
-            print(f"[isplib_tpu_torch] auto-tiling graph ({graph.nnz} "
-                  f"edges) with version {version} {cfg}", file=sys.stderr)
+            _log.info("auto-tiling graph (%d edges) with version %d %s",
+                      graph.nnz, version, cfg)
             tiled = build_tiling(graph, version=version, k=k,
                                  cache_tag=cache_tag, **cfg)
             memo["plans"][plan_key] = [

@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import TYPE_CHECKING, Optional
 
 import numpy as np
@@ -52,6 +51,7 @@ import torch
 
 from .. import native
 from ..device import resolve_device
+from ..utils.profiling import stage
 
 if TYPE_CHECKING:
     from .minmax_sched import MinMaxSchedule
@@ -301,14 +301,14 @@ def build_plan_v2_arrays(
         if with_eids:
             return dataclasses.replace(p, mm_sched=derive_v2_minmax_schedule(
                 p))
-        t0 = time.perf_counter()
-        p = dataclasses.replace(p, sched=derive_v2_schedule(p))
+        with stage("plan.sched", kind="v2") as st:
+            p = dataclasses.replace(p, sched=derive_v2_schedule(p))
         s = p.sched
         _log.info("v2 schedule: %d real slots of %d in %d items, %d split "
                   "rows, %d rows zeroed first; derived in %.3fs",
                   s.order.shape[0], nc * eb, s.nseg,
                   int((s.row_ptr.diff() > ITEM_SLOTS).sum()),
-                  s.zero_rows.shape[0], time.perf_counter() - t0)
+                  s.zero_rows.shape[0], st.seconds)
         return p
 
     if nnz == 0:

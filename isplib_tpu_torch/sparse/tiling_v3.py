@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Optional
 
 import numpy as np
@@ -60,6 +59,7 @@ import torch
 
 from .. import native
 from ..device import resolve_device
+from ..utils.profiling import stage
 from .tiling_v2 import TiledPlanV2, build_plan_v2_arrays
 
 __all__ = ["BSRPlan", "BSRSchedule", "HybridPlanV3", "build_plan_v3_arrays",
@@ -346,12 +346,12 @@ def build_plan_v3_arrays(
                       cell_starts=i32(starts_g // g), nb=nb, nrb_s=nrb_s,
                       n_super=n_super, num_rows=num_rows, num_cols=num_cols,
                       kt=kt, g=g)
-        t0 = time.perf_counter()
-        bsr = dataclasses.replace(bsr, sched=derive_bsr_schedule(bsr))
+        with stage("plan.sched", kind="v3") as st:
+            bsr = dataclasses.replace(bsr, sched=derive_bsr_schedule(bsr))
         s = bsr.sched
         _log.info("v3 schedule: %d real members of %d in %d pieces, %d row "
                   "blocks zeroed first; derived in %.3fs", s.n_real, nb,
-                  s.n_pieces, s.zero_rbs.shape[0], time.perf_counter() - t0)
+                  s.n_pieces, s.zero_rbs.shape[0], st.seconds)
 
     residual = None
     if res_row.shape[0]:

@@ -38,13 +38,13 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import native
+from ..utils.profiling import stage
 from .tiling_v3 import MAX_PIECE, BSRSchedule, cut_pieces
 
 __all__ = ["HybridPlan", "build_hybrid_plan", "derive_block_schedule", "BS",
@@ -217,11 +217,11 @@ def build_hybrid_plan(
         dense_edges=nnz - nr, sparse_edges=nr, dense_threshold=thr)
     if nb == 0:
         return plan
-    t0 = time.perf_counter()
-    plan = dataclasses.replace(plan, sched=derive_block_schedule(plan))
+    with stage("plan.sched", kind="v5") as st:
+        plan = dataclasses.replace(plan, sched=derive_block_schedule(plan))
     s = plan.sched
     _log.info("v5 schedule: %d blocks over %d block-rows (at most %d in "
               "one) in %d pieces, %d block-rows zeroed first; derived in "
               "%.3fs", nb, n_br, int(plan.blk_rowptr.diff().max()),
-              s.n_pieces, s.zero_rbs.shape[0], time.perf_counter() - t0)
+              s.n_pieces, s.zero_rbs.shape[0], st.seconds)
     return plan

@@ -23,6 +23,7 @@ from ..device import resolve_device
 from ..dist.partition import ShardedGraph
 from ..nn.conv import BatchNorm
 from ..sparse.tiling import TiledGraph, auto_tile, base_graph
+from ..utils.profiling import span
 
 __all__ = ["TrainResult", "train_node_classifier", "make_train_step"]
 
@@ -110,13 +111,14 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     def step(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
              generator: Optional[torch.Generator] = None):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        logits = model(graph, x, generator=generator, backend=backend)
-        lval = _loss_fn(logits, y, mask, loss)
-        lval.backward()
-        optimizer.step()
-        return lval.detach(), _masked_acc(logits.detach(), y, mask)
+        with span("isplib.step"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            logits = model(graph, x, generator=generator, backend=backend)
+            lval = _loss_fn(logits, y, mask, loss)
+            lval.backward()
+            optimizer.step()
+            return lval.detach(), _masked_acc(logits.detach(), y, mask)
 
     return step
 

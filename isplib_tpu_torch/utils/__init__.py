@@ -1,6 +1,8 @@
 """Utilities of the port: device timing (``timing.chain_time``,
 ``chain_times``), profiling (``profiling.trace``, ``op_report``,
-``Timer``) and the H100's cost model of the sum plans (``roofline``)."""
+``Timer``, and the port's spans and stages: ``profiling.span``,
+``stage``, ``stages``) and the H100's cost model of the sum plans
+(``roofline``)."""
 
 from .timing import chain_time, chain_times
 from .profiling import Timer, op_report, trace
