@@ -44,6 +44,21 @@ def test_sage_max_aggregations_and_flops():
     assert counts.model_flops(CFG, GRAPH) == 192 + 192 + 30 + 8
 
 
+def test_sage_mean_aggregations_and_flops():
+    counts = spec.module("counts", "sage_mean")
+    aggs = counts.aggregations(CFG, GRAPH)
+    assert [(a["name"], a["kind"], a["nnz"], a["k"]) for a in aggs] == \
+        [("A.layer1", "sum", 6, 3), ("A.layer2", "sum", 6, 2),
+         ("At.layer2", "sum", 6, 2)]
+    assert all((a["rows"], a["cols"]) == (4, 4) for a in aggs)
+    # 4·6 indices + 4·5 row pointers + 4·4·3 read + 4·4·3 written
+    assert bound.aggregation_bytes(aggs[0]) == 24 + 20 + 48 + 48
+    assert bound.aggregation_ops(aggs[0]) == (36, "bf16_tensor_flops_per_s")
+    # 4 products at F: 4 · 2·4·3·2; 6 at hidden: 6 · 2·4·2·2; three sums
+    # 2·6·3 + 2 · 2·6·2 (the division by the degree is not counted)
+    assert counts.model_flops(CFG, GRAPH) == 192 + 192 + 36 + 48
+
+
 def test_reddit_bound_at_32():
     """The issue's reckoning: ~519 MB at K = 32, 0.155 ms on the H100."""
     graph = spec.graph("reddit")

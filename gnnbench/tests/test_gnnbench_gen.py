@@ -2,6 +2,7 @@
 
 import math
 
+import pytest
 import torch
 
 from gnnbench import gen, spec
@@ -42,11 +43,21 @@ def test_same_seed_same_inputs():
     assert not torch.equal(a.edge_index, inputs(2**31 + 5, graph).edge_index)
 
 
-def test_published_counts_at_a_cut_scale():
-    graph = cut(spec.graph("reddit"))
+# each graph file's published (nodes, edges, features, classes)
+PUBLISHED = {"reddit": (232_965, 114_615_892, 602, 41),
+             "mag": (736_389, 10_832_542, 128, 349)}
+
+
+@pytest.mark.parametrize("name", sorted(PUBLISHED))
+def test_published_counts_at_a_cut_scale(name):
+    full = spec.graph(name)
+    assert (full["nodes"], full["edges"], full["features"],
+            full["classes"]) == PUBLISHED[name]
+    assert sum(full["split"].values()) == full["nodes"]
+    graph = cut(full)
     a = inputs(3, graph)
     n, e = graph["nodes"], graph["edges"]
-    assert (n, e) == (232_965 // 64, 114_615_892 // 64 // 2 * 2)
+    assert (n, e) == (full["nodes"] // 64, full["edges"] // 64 // 2 * 2)
     assert a.edge_index.shape == (2, e)
     src, dst = a.edge_index
     assert int(src.min()) >= 0 and int(src.max()) < n
@@ -56,9 +67,10 @@ def test_published_counts_at_a_cut_scale():
     assert torch.equal(dst[half:], src[:half])
     assert a.x.shape == (n, 16) and a.x.dtype == torch.float32
     assert int(a.y.max()) < graph["classes"]
-    sizes = [int(m.sum()) for m in (a.train, a.val, a.test)]
-    assert sizes == [graph["split"][p] for p in ("train", "val", "test")]
-    assert not bool((a.train & a.val).any() or (a.train & a.test).any())
+    masks = torch.stack([a.train, a.val, a.test])
+    assert bool((masks.sum(0) == 1).all())   # every node in one part
+    assert [int(m.sum()) for m in masks] == \
+        [graph["split"][p] for p in ("train", "val", "test")]
 
 
 def test_parameter_laws():

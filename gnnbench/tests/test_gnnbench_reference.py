@@ -75,20 +75,32 @@ def test_max_ties_go_to_the_lowest_column():
     assert arg.tolist() == [[1], [-1], [-1]]
 
 
-def dense_loss(cfg, name, p, x, y, a_dense, keep_mask, keep, train):
-    """The same model by torch's autograd on a dense adjacency."""
-    def agg(t):
-        if name == "gcn":
-            return a_dense @ t
+def dense_agg(cfg, a_dense, t):
+    """The configuration's aggregation over a dense adjacency that holds
+    each entry's multiplicity (or Â's values)."""
+    aggr = cfg.get("aggregation", "sum")
+    if aggr == "max":
         big = torch.where(a_dense[..., None] > 0, t[None],
                           torch.full_like(t[None], float("-inf")))
         m = big.max(1).values
         return torch.where(torch.isinf(m), torch.zeros_like(m), m)
-    if name == "gcn":
+    out = a_dense @ t
+    if aggr == "mean":
+        return out / a_dense.sum(1, keepdim=True).clamp(min=1.0)
+    assert aggr == "sum", aggr
+    return out
+
+
+def dense_loss(cfg, p, x, y, a_dense, keep_mask, keep, train):
+    """The same model by torch's autograd on a dense adjacency."""
+    def agg(t):
+        return dense_agg(cfg, a_dense, t)
+    if cfg["model"] == "GCN":
         a1 = agg(x @ p["conv1.kernel"]) + p["conv1.bias"]
         h = plain.dropout(torch.relu(a1), keep_mask, keep)
         a2 = agg(h @ p["conv2.kernel"]) + p["conv2.bias"]
     else:
+        assert cfg["model"] == "GraphSAGE", cfg["model"]
         a1 = (agg(x) @ p["conv1.lin_l.kernel"] + p["conv1.lin_l.bias"]
               + x @ p["conv1.lin_r.kernel"])
         h = plain.dropout(torch.relu(a1), keep_mask, keep)
@@ -99,17 +111,25 @@ def dense_loss(cfg, name, p, x, y, a_dense, keep_mask, keep, train):
     return -(lp.gather(1, y[:, None])[:, 0] * m).sum() / m.sum()
 
 
-@pytest.mark.parametrize("name", ["gcn", "sage_max"])
+@pytest.mark.parametrize("name", [c["name"] for c in
+                                  spec.benchmark()["configs"]])
 def test_gradients_match_autograd(name):
+    """Every configuration's reference against torch's autograd of a dense
+    form: this file's for GCN and GraphSAGE (sum, mean, max), or the
+    reference's own ``dense_loss(cfg, p, x, y, edge_index, n, keep_mask,
+    keep, train)`` for a model that it lacks.  Duplicate edges, and the
+    last node left without any (its mean divides by max(deg, 1), GCN gives
+    it a self loop)."""
     torch.manual_seed(0)
     n, f, c, h = 30, 5, 3, 4
-    src = torch.randint(0, n, (80,))
-    dst = torch.randint(0, n, (80,))
+    src = torch.randint(0, n - 1, (80,))
+    dst = torch.randint(0, n - 1, (80,))
     keep = src != dst
     ei = torch.stack([torch.cat([src[keep], dst[keep]]),
                       torch.cat([dst[keep], src[keep]])])
+    assert ei.unique(dim=1).shape[1] < ei.shape[1]   # duplicates
     ref = spec.module("reference", name)
-    cfg = dict(hidden=h)
+    cfg = {**spec.config(spec.benchmark(), name), "hidden": h}
     p = {k: torch.randn(shape, dtype=torch.float64)
          for k, shape, _ in ref.parameters(cfg, f, c)}
     x = torch.randn(n, f, dtype=torch.float64)
@@ -117,17 +137,22 @@ def test_gradients_match_autograd(name):
     train = torch.rand(n) < 0.7
     keep_mask = torch.rand(n, h) < 0.5
     model = ref.Model(ei, n, x, y, cfg)
-    if name == "gcn":
-        row, col, val = ref.normalized(ei, n)
-        a_dense = torch.zeros(n, n, dtype=torch.float64)
-        a_dense.index_put_((row, col), val.double(), accumulate=True)
-    else:
-        a_dense = torch.zeros(n, n, dtype=torch.float64)
-        a_dense[ei[1], ei[0]] = 1.0
     loss, grads = model.loss_and_grads(p, keep_mask, 0.5, train)
     leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
-    want = dense_loss(cfg, name, leaves, x, y, a_dense, keep_mask, 0.5,
-                      train)
+    if hasattr(ref, "dense_loss"):   # a model that the one here lacks
+        want = ref.dense_loss(cfg, leaves, x, y, ei, n, keep_mask, 0.5,
+                              train)
+    else:
+        a_dense = torch.zeros(n, n, dtype=torch.float64)
+        if cfg["transform"] == "gcn_norm":
+            row, col, val = ref.normalized(ei, n)
+            a_dense.index_put_((row, col), val.double(), accumulate=True)
+        else:
+            assert cfg["transform"] is None, cfg["transform"]
+            a_dense.index_put_((ei[1], ei[0]),
+                               torch.ones(ei.shape[1], dtype=torch.float64),
+                               accumulate=True)
+        want = dense_loss(cfg, leaves, x, y, a_dense, keep_mask, 0.5, train)
     want.backward()
     assert float(loss) == pytest.approx(float(want.detach()), rel=1e-6)
     for k in p:

@@ -1,6 +1,7 @@
 """A whole run of each cell on the CPU at a cut size, past the look for a
-card: the last line's keys, and ``correct`` false under each fault of a
-training cell planted in the program underneath."""
+card: the last line's keys (also of a cell added to an in-memory
+``BENCHMARK.json``), and ``correct`` false under each fault of a training
+cell planted in the program underneath."""
 
 import importlib
 import json
@@ -27,9 +28,11 @@ def drive(capsys, cell, trace=0, seed=2**31 + 11):
     return json.loads(out[-1])
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", [*CELLS, "added"])
 @pytest.mark.parametrize("trace", [0, 1])
-def test_last_line(capsys, cell, trace):
+def test_last_line(capsys, request, cell, trace):
+    if cell == "added":   # a cell that only the in-memory file has
+        cell = request.getfixturevalue("added_cell")
     line = drive(capsys, cell, trace)
     assert list(line)[:5] == ["correct", "attempted", "failed", "metrics",
                               "device"]

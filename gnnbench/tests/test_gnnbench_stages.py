@@ -1,6 +1,7 @@
 """The readers of the port's own spans and stages: the device readers on a
 hand-made summary, the set-up readers on a hand-made stage log, a cut run
-of each cell on the CPU, and two runs in one process."""
+of each cell on the CPU (and of a cell added to an in-memory
+``BENCHMARK.json``), and two runs in one process."""
 
 import json
 
@@ -15,6 +16,7 @@ CUT = dict(nodes=1500, edges=30000, features=48, classes=5,
 DEVICE = ("k1_ms", "k2_ms", "k3_ms", "route_ms")
 SETUP = ("k2_edge_share_pct", "sort_s", "host_copy_s", "norm_self_s",
          "plan_mm_s")
+PLAN = ("k2_edge_share_pct", "plan_mm_s")
 
 
 def read(name, summary=None):
@@ -114,27 +116,34 @@ def drive(capsys, cell, seed):
     return json.loads(out[-1])
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in
-                                  spec.benchmark()["workloads"]])
-def test_a_cut_run_reads_its_own_stages(capsys, cell):
-    gcn = cell.startswith("gcn.")
+@pytest.mark.parametrize("cell", [*[w["name"] for w in
+                                    spec.benchmark()["workloads"]], "added"])
+def test_a_cut_run_reads_its_own_stages(capsys, request, cell):
+    """What a cell reports is what ``BENCHMARK.json`` lists for it, and
+    its sorts are two a graph build of its own run's stage log."""
+    if cell == "added":   # a cell that only the in-memory file has
+        cell = request.getfixturevalue("added_cell")
+    listed = {m["name"] for m in spec.metrics_of(spec.benchmark(),
+                                                 "per_layer", cell)}
+    # numbers from the host stages; none from a plan (a CPU graph is never
+    # tiled) or from a device trace
+    got = (listed & set(SETUP)) - set(PLAN)
     first = drive(capsys, cell, 2**31 + 5)["metrics"]
     log = profiling.stages()
     second = drive(capsys, cell, 2**31 + 6)["metrics"]
-    # numbers from the host stages; none from a plan (a CPU graph is never
-    # tiled) or from a device trace
-    got = {"sort_s", "host_copy_s"} | ({"norm_self_s"} if gcn else set())
     for m in (first, second):
         assert got <= set(m)
         assert all(m[n]["value"] > 0 for n in got)
-        assert not {"k2_edge_share_pct", "plan_mm_s", *DEVICE} & set(m)
+        assert not {*PLAN, *DEVICE} & set(m)
     # the second run's readings are its own stages', not both runs'
     new = [s for s in profiling.stages() if s["id"] > log[-1]["id"]]
     assert new[0]["name"] == "graph.build" and new[0]["parent"] is None
+    builds = [s for s in new if s["name"] == "graph.build"]
     sorts = [stages.seconds(s) for s in new if s["name"] == "graph.sort"]
-    assert len(sorts) == (6 if gcn else 2)
-    assert second["sort_s"]["value"] == pytest.approx(sum(sorts))
+    assert len(sorts) == 2 * len(builds)
+    assert read("sort_s") == pytest.approx(sum(sorts))
+    if "sort_s" in got:
+        assert second["sort_s"]["value"] == pytest.approx(sum(sorts))
     every = [stages.seconds(s) for s in profiling.stages()
              if s["name"] == "graph.sort"]
-    assert second["sort_s"]["value"] < sum(every)
-
+    assert read("sort_s") < sum(every)
