@@ -244,6 +244,27 @@
       plans at 128), through ``check_and_time`` on A and Aᵀ at K = 349.
       The sweep's reddit is not drawn at 1.0; its K = 640 is part a's.
 
+15. GAT's attention kernels (``kernels/gat_attention``, ``gat_path``) on
+   step 11's graph, whose attention entries are its 114.4M edges that are
+   not self loops and one self loop a node:
+   a. at heads × width 4 × 256 (GAT's layers 1 and 2) and 6 × 41 (layer 3,
+      each head padded to 44 as ``ops/attention.py`` pads it): the forward
+      (out and each row's lse), the transposed sum (x's gradient) and the
+      per-entry pass (the scores' gradients), each on the same card inputs
+      against ``ops/reference.py``'s plain formulas over the entries at
+      1e-4 of each output's scale, timed beside its plain version and
+      beside the bound that ``gnnbench/counts/gat.py`` gives its role's
+      pass;
+   b. one training step of GAT(602 → 4×256 → 4×256 → 6×41) through
+      ``make_train_step`` on the TiledGraph, every launch count set to 0
+      just before it and every function of ``ops/reference.py`` made to
+      raise: the loss finite, each attention kernel launched as often as
+      three layers need (``att_stats`` 6, ``att_gather`` 6, ``att_bwd_e``
+      3, ``att_colsum`` 3), no other kernel of the port; then the model's
+      loss through the kernels against the reference path (1e-4
+      relative), the step timed over ``GAT_STEPS`` steps, the peak device
+      memory.
+
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line; every
 number it measures is logged on the lines before.  Any failed check raises:
@@ -271,7 +292,8 @@ import numpy as np
 import torch
 
 from isplib_tpu_torch.utils.roofline import (BF16_TENSOR_FLOPS, FP32_FLOPS,
-                                             bound_ms, cost_bound_ms,
+                                             HBM_BYTES_PER_S, bound_ms,
+                                             cost_bound_ms,
                                              plan_bound_edges_per_s,
                                              plan_cost, v2_cost)
 
@@ -318,6 +340,11 @@ BENCH_METRIC = "spmm_sum_edges_per_s_k32_reddit"
 BENCH_TOL = 1e-4          # bench_fused's errors, forward and backward
 BENCH_TIMEOUT = 600       # seconds each bench subprocess may take
 SWEEP_SCALE, SWEEP_EPOCHS = 0.02, 2   # scripts/run_all.sh's defaults
+GAT_WIDTHS = ((4, 256), (6, 41))   # heads × features: layers 1-2, layer 3
+GAT_SLOPE = 0.2           # LeakyReLU's slope on the attention logits
+GAT_STEPS = 3             # GAT training steps timed after the counted one
+GAT_ROLES = (("fwd", ("att_stats", "att_gather")), ("bwd_x", ("att_gather",)),
+             ("bwd_e", ("att_bwd_e", "att_colsum")))
 SWEEP_LOSS_RTOL = 2e-2    # a pallas row's losses against its xla row's
 SWEEP_ACC_TOL = 0.02      # and its accuracies (near chance on the stand-ins,
                           # so the losses are the check with teeth)
@@ -2332,6 +2359,200 @@ def fullscale_path(drive, cases, gen):
     return arrays, g, tiled
 
 
+def att_bound_ms(rows: int, entries: int, heads: int, k: int,
+                 role: str) -> tuple[float, str]:
+    """The least ms one attention pass over ``entries`` could take, and what
+    bounds it, as ``gnnbench/counts/gat.py`` ``role_bound_s`` counts a
+    layer's pass: 4·entries + 4·(rows + 1) bytes of structure, 4·entries·H
+    of logits or α, 4·2·rows·K of features at the HBM rate, against
+    2·entries·K products at the bf16 tensor-core peak plus (but in
+    ``bwd_x``) 4·entries·H softmax operations at the fp32 rate."""
+    nbytes = (4 * entries + 4 * (rows + 1) + 4 * entries * heads
+              + 8 * rows * k)
+    t_ops = (2.0 * entries * k / BF16_TENSOR_FLOPS
+             + (0.0 if role == "bwd_x" else 4.0 * entries * heads)
+             / FP32_FLOPS)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+@contextlib.contextmanager
+def refusing(module):
+    """Every function that ``module`` exports raises while inside."""
+    saved = {name: getattr(module, name) for name in module.__all__
+             if callable(getattr(module, name))}
+
+    def refuse(*a, **k):
+        raise AssertionError(f"{module.__name__} ran on the kernel path")
+    try:
+        for name in saved:
+            setattr(module, name, refuse)
+        yield
+    finally:
+        for name, f in saved.items():
+            setattr(module, name, f)
+
+
+def gat_path(cases, full, gen):
+    """Phase 15 (GAT's attention kernels) on phase 11's graph ``full``
+    (host arrays, CSRGraph, TiledGraph): appends a case a role and width to
+    ``cases`` and returns the training step's launches by attention
+    kernel."""
+    from isplib_tpu_torch import GAT
+    from isplib_tpu_torch.bench import counted
+    from isplib_tpu_torch.kernels import gat_attention as katt
+    from isplib_tpu_torch.ops import reference
+    from isplib_tpu_torch.ops.attention import _pad
+    from isplib_tpu_torch.sparse.tiling import base_graph
+    from isplib_tpu_torch.train import make_train_step
+    from isplib_tpu_torch.train.loop import _loss_fn
+
+    t_phase = time.perf_counter()
+    arrays, g, tiled = full
+    base = base_graph(tiled)
+    n, dev = base.num_rows, base.col.device
+    dst, src = reference.attention_edges(base.row, base.col, base.nnz, n)
+    entries = int(dst.numel())
+    for heads, c in GAT_WIDTHS:
+        k = heads * c
+        label = f"gat_attention reddit-full {heads}x{c}"
+
+        def draw(cols):
+            return torch.randn(n, cols, device=dev, generator=gen)
+        x, gr = _pad(draw(k), heads), _pad(draw(k), heads)
+        ss, sd = draw(heads), draw(heads)
+        fmm, bmm = tiled.fwd_mm, tiled.bwd_mm
+
+        def fwd():
+            return katt.forward(fmm, base.col, x, ss, sd, GAT_SLOPE)
+
+        (want, lse), plain_fwd = timed(lambda: reference.attention_raw(
+            dst, src, x, ss, sd, n, GAT_SLOPE))
+        out, got_lse = fwd()
+        errs = {"fwd": [check_near_plain(f"{label} out", out, want),
+                        check_near_plain(f"{label} lse", got_lse, lse)]}
+        del out, got_lse
+
+        # the backward passes read the plain forward's out and lse, so both
+        # sides start from the same inputs
+        def bwd_x():
+            return katt.backward_x(bmm, base.csc_col, gr, ss, sd, lse,
+                                   GAT_SLOPE)
+
+        def bwd_e():
+            return katt.backward_e(fmm, base.col, bmm, base.csc2csr, gr,
+                                   want, x, ss, sd, lse, GAT_SLOPE)
+
+        def plain_bwd_x():
+            alpha = reference.attention_alpha(dst, src, ss, sd, lse,
+                                              GAT_SLOPE)
+            return reference.attention_sum(src, dst, alpha, gr, n)
+
+        def plain_bwd_e():
+            dz = reference.attention_edge_grad(dst, src, ss, sd, lse, gr,
+                                               want, x, GAT_SLOPE)
+            return (dz.new_zeros(n, heads).index_add_(0, src, dz),
+                    dz.new_zeros(n, heads).index_add_(0, dst, dz))
+
+        w_dx, plain_x = timed(plain_bwd_x)
+        errs["bwd_x"] = [check_near_plain(f"{label} dx", bwd_x(), w_dx)]
+        del w_dx
+        (w_dss, w_dsd), plain_e = timed(plain_bwd_e)
+        dss, dsd = bwd_e()
+        errs["bwd_e"] = [check_near_plain(f"{label} ds_src", dss, w_dss),
+                         check_near_plain(f"{label} ds_dst", dsd, w_dsd)]
+        del w_dss, w_dsd, dss, dsd
+        for role, fn, plain_ms in (("fwd", fwd, plain_fwd),
+                                   ("bwd_x", bwd_x, plain_x),
+                                   ("bwd_e", bwd_e, plain_e)):
+            # the role's output nearest its tolerance
+            err, tol = max(errs[role],
+                           key=lambda et: et[0] / max(et[1], 1e-30))
+            r = dict(kernel="gat_attention", role=role, graph="reddit-full",
+                     heads=heads, c=c, k=k, max_abs_err=err, tol=tol,
+                     ms=cuda_ms(fn, iters=5, warmup=1), plain_ms=plain_ms,
+                     library_ms=None,
+                     bound=att_bound_ms(n, entries, heads, k, role))
+            cases.append(r)
+            log(f"gat_attention {role:5s} reddit-full {heads}x{c} (K = {k}"
+                f", {x.shape[1]} columns): {r['ms']:.3f} ms (plain "
+                f"{plain_ms:.1f}, bound {r['bound'][0]:.3f} by "
+                f"{r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.2f}% of "
+                f"it); errs "
+                + ", ".join(f"{e:.3g} <= {t:.3g}" for e, t in errs[role]))
+        del x, gr, ss, sd, want, lse
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- one GAT training step on the TiledGraph, nothing of the plain
+    # path reachable -------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    x0 = torch.from_numpy(arrays["x"]).to(dev)
+    y = torch.from_numpy(arrays["y"]).to(dev)
+    mask = torch.from_numpy(arrays["train_mask"]).to(dev)
+    model = GAT(FEATURES, hidden=256, num_classes=CLASSES,
+                heads=(4, 4, 6), device=dev, seed=0)
+    opt = torch.optim.Adam(model.parameters(), lr=0.005)
+    step = make_train_step(model, opt, tiled)
+    katt.LAUNCHES, katt.BY_KERNEL = 0, dict.fromkeys(katt.KERNELS, 0)
+    with refusing(reference):
+        (loss, _), others = counted(lambda: step(x0, y, mask))
+        torch.cuda.synchronize()
+    launches = dict(katt.BY_KERNEL)
+    log(f"GAT step on reddit-full: loss {float(loss):.6f}; attention "
+        f"launches {launches}, other kernels {others}")
+    want = {"att_stats": 6, "att_gather": 6, "att_bwd_e": 3, "att_colsum": 3}
+    if not (bool(torch.isfinite(loss)) and launches == want and not others):
+        raise AssertionError(f"GAT step: loss {float(loss)}, attention "
+                             f"launches {launches} (want {want}), other "
+                             f"kernels {others}")
+    step_ms = cuda_ms(lambda: step(x0, y, mask), iters=GAT_STEPS, warmup=0)
+    model.eval()
+    with torch.no_grad():
+        l_kernel = float(_loss_fn(model(tiled, x0), y, mask, "nll"))
+        l_ref = float(_loss_fn(model(g, x0, backend="reference"), y, mask,
+                               "nll"))
+    log(f"GAT on reddit-full: a step {step_ms:.1f} ms ({GAT_STEPS} steps); "
+        f"loss after {GAT_STEPS + 1} steps through the kernels "
+        f"{l_kernel:.7f}, reference path {l_ref:.7f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not abs(l_kernel - l_ref) <= 1e-4 * abs(l_ref):
+        raise AssertionError(f"GAT: loss through the kernels {l_kernel} vs "
+                             f"reference {l_ref} (rtol 1e-4)")
+    del x0, y, mask, model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 15 (GAT's attention kernels): "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+def gat_rows(cases, launches) -> list[dict]:
+    """The kernel table's rows of ``csrc/gat_attention.cu``, one a role of
+    the attention: the headline at 4 × 256, every width under ``widths``,
+    each kernel's launches in a GAT training step (``att_gather`` runs in
+    both ``fwd`` and ``bwd_x``, three times each)."""
+    rows = []
+    for role, kernels in GAT_ROLES:
+        mine = [r for r in cases if r["kernel"] == "gat_attention"
+                and r["role"] == role]
+        head = next(r for r in mine if (r["heads"], r["c"]) == GAT_WIDTHS[0])
+        rows.append({
+            "name": f"gat_attention.{role}", "route": "cuda",
+            "source": "isplib_tpu_torch/kernels/csrc/gat_attention.cu",
+            "replaces": None, "kernels": list(kernels),
+            "launches": {kn: launches[kn] for kn in kernels},
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
+            "library_ms": None,
+            "widths": [{"heads": r["heads"], "c": r["c"], "ms": r["ms"],
+                        "bound_ms": r["bound"][0], "err": r["max_abs_err"],
+                        "tol": r["tol"]} for r in mine]})
+    return rows
+
+
 def log_sum_case(name, direction, k, rows, whole):
     """The lines of one ``check_and_time`` case: each kernel's ms, plain,
     library and bound (and its share of the bound), the hybrid's."""
@@ -3057,7 +3278,12 @@ def smoke() -> int:
 
     # ---- the main path on the full 114.6M-edge graph (K1, K2), then ---------
     # every kernel of the entry points at full size, on that graph
-    fullsize_parity(cases, fullscale_path(drive, cases, gen), gen)
+    full = fullscale_path(drive, cases, gen)
+    fullsize_parity(cases, full, gen)
+
+    # ---- GAT's attention kernels on that graph ---------------------------
+    gat_launches = gat_path(cases, full, gen)
+    del full
 
     # ---- the measuring entry points: bench and bench_fused ---------------
     bench_paths(graphs, wholes)
@@ -3124,6 +3350,9 @@ def smoke() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"]})
+    # the attention's kernels replace no TPU kernel (the JAX package runs
+    # an attention with learned edge values through XLA)
+    table += gat_rows(cases, gat_launches)
 
     log(f"every check passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": table}), flush=True)

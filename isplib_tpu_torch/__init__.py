@@ -21,13 +21,14 @@ the caller passes ``device="cpu"``.
 from .convert import (gcn_params_from_flax, gin_params_from_flax,
                       sage_params_from_flax)
 from .ops import (FusedOp, Reduce, ReduceOp, ScalarOp, ScaleOp, SpMM,
-                  VectorOp, fused_mm, fused_mm_edges, sddmm,
+                  VectorOp, attention, fused_mm, fused_mm_edges, sddmm,
                   set_default_backend, spmm)
 from .sparse import (CSRGraph, TiledGraph, auto_tile, build_tiling,
                      build_tiling_from_numpy, from_edge_index, from_scipy,
                      graph_from_arrays)
-from .nn import (GCN, GIN, MODEL_REGISTRY, GCNConv, GINConv, GraphSAGE,
-                 SAGEConv, add_self_loops, gcn_norm, row_normalize)
+from .nn import (GAT, GCN, GIN, MODEL_REGISTRY, GATConv, GCNConv, GINConv,
+                 GraphSAGE, SAGEConv, add_self_loops, gcn_norm,
+                 row_normalize)
 from .train import TrainResult, make_train_step, train_node_classifier
 from .tune import tune_spmm
 
@@ -37,9 +38,10 @@ __all__ = [
     "CSRGraph", "TiledGraph", "from_edge_index", "from_scipy",
     "graph_from_arrays", "build_tiling", "build_tiling_from_numpy",
     "auto_tile", "Reduce", "SpMM", "spmm", "set_default_backend", "sddmm",
-    "fused_mm", "fused_mm_edges", "FusedOp", "VectorOp", "ReduceOp",
-    "ScalarOp", "ScaleOp", "GCN", "GraphSAGE", "GIN",
-    "MODEL_REGISTRY", "GCNConv", "SAGEConv", "GINConv", "add_self_loops",
+    "fused_mm", "fused_mm_edges", "attention", "FusedOp", "VectorOp",
+    "ReduceOp", "ScalarOp", "ScaleOp", "GCN", "GraphSAGE", "GIN", "GAT",
+    "MODEL_REGISTRY", "GCNConv", "SAGEConv", "GINConv", "GATConv",
+    "add_self_loops",
     "gcn_norm", "row_normalize", "TrainResult", "train_node_classifier",
     "make_train_step", "gcn_params_from_flax", "sage_params_from_flax",
     "gin_params_from_flax", "tune_spmm", "__version__",

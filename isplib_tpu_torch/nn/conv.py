@@ -1,6 +1,7 @@
 """Message-passing layers, the counterpart of ``isplib_tpu.nn.conv``
 (``GCNConv``, ``SAGEConv``, ``GINConv``) plus the flax ``Dense`` and
-``BatchNorm`` they and the models are built from.
+``BatchNorm`` they and the models are built from, and ``GATConv``, which
+the JAX package lacks (PyG's semantics).
 
 Parameters keep the flax names and shapes (``kernel`` is (in, out)), so a
 flax parameter tree maps 1:1 (``isplib_tpu_torch.convert``).  Every layer
@@ -16,9 +17,11 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.attention import attention
 from ..ops.spmm import spmm
 
-__all__ = ["Dense", "BatchNorm", "GCNConv", "SAGEConv", "GINConv"]
+__all__ = ["Dense", "BatchNorm", "GCNConv", "SAGEConv", "GINConv",
+           "GATConv"]
 
 
 def _glorot_uniform(fan_in: int, fan_out: int,
@@ -156,3 +159,50 @@ class GINConv(nn.Module):
                 backend: Optional[str] = None) -> torch.Tensor:
         agg = spmm(graph, x, "sum", backend)
         return self.mlp((1.0 + self.eps) * x + agg)
+
+
+class GATConv(nn.Module):
+    """PyG ``GATConv``: x' = ‖ or mean over heads h of Σ_c α_rc^h (x W)_c^h,
+    then + bias, with α_r·^h the softmax over row r's entries (each
+    duplicate edge one, and one self loop a node in place of the graph's)
+    of LeakyReLU(a_dst^h · (x W)_r^h + a_src^h · (x W)_c^h).
+
+    ``lin`` (in, heads·out) without a bias and the attention vectors
+    ``att_src``, ``att_dst`` (heads, out) are drawn from Glorot's uniform
+    law (PyG's ``glorot``: fan in and out the last two sizes), the bias
+    zero, (heads·out,) concatenated or (out,) averaged.  The scores are
+    one product each; the aggregation is ``ops.attention.attention``.
+    """
+
+    def __init__(self, in_features: int, out_features: int, heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2,
+                 device: str | torch.device = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = _generator(generator)
+        self.heads, self.out_features = heads, out_features
+        self.concat, self.negative_slope = concat, negative_slope
+        # PyG's lin: a kernel (in, heads·out) without a bias
+        self.lin = nn.Module()
+        self.lin.kernel = nn.Parameter(
+            _glorot_uniform(in_features, heads * out_features, gen).to(dev))
+        self.att_src = nn.Parameter(
+            _glorot_uniform(heads, out_features, gen).to(dev))
+        self.att_dst = nn.Parameter(
+            _glorot_uniform(heads, out_features, gen).to(dev))
+        self.bias = nn.Parameter(torch.zeros(
+            heads * out_features if concat else out_features, device=dev))
+
+    def forward(self, graph, x: torch.Tensor,
+                backend: Optional[str] = None) -> torch.Tensor:
+        h, c = self.heads, self.out_features
+        xw = x @ self.lin.kernel
+        xh = xw.view(-1, h, c)
+        s_src = (xh * self.att_src).sum(-1)
+        s_dst = (xh * self.att_dst).sum(-1)
+        out = attention(graph, xw, s_src, s_dst, self.negative_slope,
+                        backend)
+        if not self.concat:
+            out = out.view(-1, h, c).mean(1)
+        return out + self.bias

@@ -1,5 +1,6 @@
 """Model zoo, the counterpart of ``isplib_tpu.nn.models`` (``GCN``,
-``GraphSAGE``, ``GIN`` and ``MODEL_REGISTRY``).
+``GraphSAGE``, ``GIN`` and ``MODEL_REGISTRY``), and ``GAT``, which the
+JAX package lacks.
 
 Unlike flax, a torch module needs its input width up front.  Weights are
 drawn from ``seed`` on the CPU, so every device gets the same model.  Every
@@ -19,9 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .conv import BatchNorm, Dense, GCNConv, GINConv, SAGEConv
+from .conv import BatchNorm, Dense, GATConv, GCNConv, GINConv, SAGEConv
 
-__all__ = ["GCN", "GraphSAGE", "GIN", "MODEL_REGISTRY"]
+__all__ = ["GCN", "GraphSAGE", "GIN", "GAT", "MODEL_REGISTRY"]
 
 
 def _dropout(h: torch.Tensor, rate: float, training: bool,
@@ -113,8 +114,42 @@ class GIN(nn.Module):
         return self.fc2(F.relu(self.fc1(h)))
 
 
+class GAT(nn.Module):
+    """The 3-layer GAT of Veličković et al. (arXiv:1710.10903) at its PPI
+    configuration → log_softmax: ``GATConv(in, hidden, heads[0])``
+    concatenated, ELU; ``GATConv(heads[0]·hidden, hidden, heads[1])``
+    concatenated, plus the identity skip across it, ELU;
+    ``GATConv(heads[1]·hidden, classes, heads[2])`` averaged.  No dropout
+    (``generator`` is not read); LeakyReLU's slope 0.2 (``GATConv``'s
+    default); the self loops are the attention's own."""
+
+    def __init__(self, in_features: int, hidden: int = 256,
+                 num_classes: int = 41, heads=(4, 4, 6),
+                 device: str | torch.device = "cuda", seed: int = 0):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        h1, h2, h3 = heads
+        if h1 != h2:
+            raise ValueError("the skip across layer 2 needs heads[0] == "
+                             "heads[1]")
+        self.conv1 = GATConv(in_features, hidden, h1, True, device=device,
+                             generator=gen)
+        self.conv2 = GATConv(h1 * hidden, hidden, h2, True, device=device,
+                             generator=gen)
+        self.conv3 = GATConv(h2 * hidden, num_classes, h3, False,
+                             device=device, generator=gen)
+
+    def forward(self, graph, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                backend: Optional[str] = None) -> torch.Tensor:
+        h = F.elu(self.conv1(graph, x, backend))
+        h = F.elu(self.conv2(graph, h, backend) + h)
+        return F.log_softmax(self.conv3(graph, h, backend), dim=-1)
+
+
 MODEL_REGISTRY = {
     "gcn": GCN,
     "sage": GraphSAGE,
     "gin": GIN,
+    "gat": GAT,
 }

@@ -26,6 +26,19 @@ the same operations in the same order as without chunks, so the results are
 the same bit for bit.  The SDDMM and the fused pipeline's ROP sum over the
 features, so there a graph that needs chunks adds the chunks' partial sums.
 The fused functions are differentiable by torch autograd.
+
+GAT's attention (``attention_raw`` and ``attention_backward_raw``) runs over
+an explicit (dst, src) edge list that ``attention_edges`` makes: the real
+edges that are not self loops and one self loop for every node (PyG
+``GATConv``'s ``remove_self_loops`` and ``add_self_loops``), duplicates
+kept as entries of their own.  For each head h,
+
+  z[e]   = s_dst[dst e, h] + s_src[src e, h],   e[e] = LeakyReLU(z[e])
+  α[e]   = softmax of e over the entries of row dst e
+  out[r] = Σ_{e : dst e = r} α[e] · x[src e, head h's columns]
+
+with x (N, H·C) laid out head by head.  Its temporaries are taken over
+chunks of edges within ``CHUNK_BYTES``.
 """
 
 from __future__ import annotations
@@ -35,7 +48,10 @@ import torch
 from .semiring import FusedOp, Reduce, ReduceOp, ScaleOp, VectorOp
 
 __all__ = ["spmm_raw", "spmm_arg_raw", "sddmm_dot_raw", "gather_rows",
-           "vop_apply", "fused_edge_scalars", "fused_mm_raw", "CHUNK_BYTES"]
+           "vop_apply", "fused_edge_scalars", "fused_mm_raw", "CHUNK_BYTES",
+           "attention_edges", "attention_lse", "attention_alpha",
+           "attention_sum", "attention_edge_grad", "attention_raw",
+           "attention_backward_raw"]
 
 CHUNK_BYTES = 2 << 30  # bytes of per-edge temporaries one chunk may take
 # temporaries per edge and feature: the gathered x rows and their products,
@@ -259,3 +275,101 @@ def fused_mm_raw(row, col, value, deg, x, y, num_rows: int,
             raise ValueError(op.aop)
         outs.append(out[:num_rows])
     return torch.cat(outs, dim=1) if outs else y.new_zeros(num_rows, 0)
+
+
+# ---------------------------------------------------------------------------
+# GAT's attention (the plain path of ops/attention.py)
+# ---------------------------------------------------------------------------
+
+def attention_edges(row: torch.Tensor, col: torch.Tensor, nnz: int,
+                    num_nodes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dst, src) int64: the first ``nnz`` entries (row, col) that are not
+    self loops, then one self loop for every node."""
+    r, c = row[:nnz].long(), col[:nnz].long()
+    keep = r != c
+    loops = torch.arange(num_nodes, device=row.device)
+    return torch.cat([r[keep], loops]), torch.cat([c[keep], loops])
+
+
+def _leaky(z: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(z > 0, z, z * slope)
+
+
+def attention_lse(dst, src, s_src, s_dst, num_nodes: int,
+                  slope: float) -> torch.Tensor:
+    """log Σ exp(e) over each row's entries, (num_nodes, H); a row without
+    entries reads -inf."""
+    e = _leaky(s_dst[dst] + s_src[src], slope)
+    h = e.shape[1]
+    m = e.new_full((num_nodes, h), float("-inf")).scatter_reduce_(
+        0, dst[:, None].expand(-1, h), e, "amax")
+    p = torch.exp(e - m[dst])
+    return m + torch.log(e.new_zeros(num_nodes, h).index_add_(0, dst, p))
+
+
+def attention_alpha(dst, src, s_src, s_dst, lse, slope: float):
+    """α (E, H) from the scores and each row's ``lse``."""
+    return torch.exp(_leaky(s_dst[dst] + s_src[src], slope) - lse[dst])
+
+
+def _edge_chunks(num_edges: int, k: int, itemsize: int) -> list[slice]:
+    per = max(_SUM_EDGE_FEATURE_BYTES * k * itemsize // 4, 1)
+    width = max(1, CHUNK_BYTES // per)
+    return [slice(e0, min(e0 + width, num_edges))
+            for e0 in range(0, num_edges, width)]
+
+
+def attention_sum(out_idx, in_idx, alpha, x, num_out: int) -> torch.Tensor:
+    """out[out_idx e] += α[e, h] · x[in_idx e, head h] for every entry,
+    (num_out, H·C)."""
+    h = alpha.shape[1]
+    k = x.shape[1]
+    xh = x.view(x.shape[0], h, k // h)
+    out = x.new_zeros(num_out, h, k // h)
+    for sl in _edge_chunks(out_idx.shape[0], k, x.element_size()):
+        out.index_add_(0, out_idx[sl],
+                       alpha[sl, :, None] * xh.index_select(0, in_idx[sl]))
+    return out.view(num_out, k)
+
+
+def attention_edge_grad(dst, src, s_src, s_dst, lse, g, out, x,
+                        slope: float) -> torch.Tensor:
+    """∂loss/∂z (E, H) from the cotangent ``g`` of ``out``: α (⟨g_dst,
+    x_src⟩ − ⟨g_dst, out_dst⟩) per head, through the LeakyReLU."""
+    h = s_src.shape[1]
+    n, k = x.shape
+    gh = g.view(-1, h, k // h)
+    xh = x.view(n, h, k // h)
+    z = s_dst[dst] + s_src[src]
+    alpha = torch.exp(_leaky(z, slope) - lse[dst])
+    dalpha = alpha.new_empty(alpha.shape)
+    for sl in _edge_chunks(dst.shape[0], 2 * k, x.element_size()):
+        dalpha[sl] = (gh.index_select(0, dst[sl])
+                      * xh.index_select(0, src[sl])).sum(-1)
+    row_dot = (gh * out.view(-1, h, k // h)).sum(-1)
+    de = alpha * (dalpha - row_dot[dst])
+    return de * torch.where(z > 0, torch.ones_like(z),
+                            torch.full_like(z, slope))
+
+
+def attention_raw(dst, src, x, s_src, s_dst, num_nodes: int,
+                  slope: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """GAT's aggregation over the entries (dst, src): out (num_nodes, H·C)
+    and each row's ``lse`` (num_nodes, H)."""
+    lse = attention_lse(dst, src, s_src, s_dst, num_nodes, slope)
+    alpha = attention_alpha(dst, src, s_src, s_dst, lse, slope)
+    return attention_sum(dst, src, alpha, x, num_nodes), lse
+
+
+def attention_backward_raw(dst, src, x, s_src, s_dst, lse, out, g,
+                           num_nodes: int, slope: float):
+    """The cotangents of x, s_src and s_dst from that of ``out``: x's is
+    the transposed weighted sum Σ_{e : src e = j} α[e] g[dst e]; the
+    scores' are the column and row sums of ∂loss/∂z."""
+    alpha = attention_alpha(dst, src, s_src, s_dst, lse, slope)
+    grad_x = attention_sum(src, dst, alpha, g, num_nodes)
+    dz = attention_edge_grad(dst, src, s_src, s_dst, lse, g, out, x, slope)
+    h = dz.shape[1]
+    grad_src = dz.new_zeros(num_nodes, h).index_add_(0, src, dz)
+    grad_dst = dz.new_zeros(num_nodes, h).index_add_(0, dst, dz)
+    return grad_x, grad_src, grad_dst

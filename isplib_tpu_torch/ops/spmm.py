@@ -22,6 +22,12 @@ the SDDMM kernel (K4) over the ``fwd_mm`` work list on a TiledGraph and the
 plain formula on a CSRGraph; it is computed only when the edge values
 require a gradient.  Pad edges never get a gradient.
 
+GAT's attention (``ops/attention.py``) is an aggregation of this op too:
+``SpMM.apply(graph, Reduce.SUM, backend, x, value, s_src, s_dst, slope)``
+is a sum whose edge weights are each row's softmax of LeakyReLU(s_dst[r]
++ s_src[c]), head by head, computed from the scores (``value`` is not
+read), differentiable in x and the scores.
+
 ``sddmm(graph, a, b)`` is the per-edge ``<a[row e], b[col e]>``: K4 forward
 on a TiledGraph, the plain formula on a CSRGraph; its backward is the two
 plain SpMMs with the cotangent as edge values, as the JAX package spells
@@ -37,7 +43,7 @@ from ..kernels import spmm_hybrid, spmm_minmax_v4
 from ..sparse.graph import CSRGraph
 from ..sparse.tiling import TiledGraph, auto_tile, base_graph
 from ..utils.profiling import span
-from . import reference
+from . import attention, reference
 from .semiring import Reduce
 
 __all__ = ["SpMM", "spmm", "SDDMM", "sddmm", "set_default_backend"]
@@ -70,12 +76,17 @@ class SpMM(torch.autograd.Function):
     and the max/min kernel for max/min, and a CSRGraph runs the reference
     path; ``"reference"`` always runs the reference path.
     The sum kernels read the values baked into the plan; the max/min
-    kernel reads ``value``.
+    kernel reads ``value``.  With ``att`` = (s_src, s_dst, slope) it is
+    GAT's attention (``ops/attention.py``), differentiable in x and the
+    scores.
     """
 
     @staticmethod
     def forward(ctx, graph, reduce: Reduce, backend: str, x: torch.Tensor,
-                value: torch.Tensor) -> torch.Tensor:
+                value: torch.Tensor, *att) -> torch.Tensor:
+        ctx.att = bool(att)
+        if att:
+            return attention.forward(ctx, graph, backend, x, *att)
         base = base_graph(graph)
         tiled = backend == "auto" and isinstance(graph, TiledGraph)
         arg = None
@@ -99,6 +110,9 @@ class SpMM(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
+        if ctx.att:
+            grad_x, grad_src, grad_dst = attention.backward(ctx, g)
+            return None, None, None, grad_x, None, grad_src, grad_dst, None
         x, value, arg = ctx.saved_tensors
         base = base_graph(ctx.graph)
         need_x, need_v = ctx.needs_input_grad[3], ctx.needs_input_grad[4]

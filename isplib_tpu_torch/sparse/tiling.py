@@ -460,12 +460,13 @@ def save_tiling(tiled: TiledGraph, arrays: dict, version: int, k: int,
 
 def host_arrays(graph: CSRGraph) -> dict:
     """The graph's edge arrays read back to the host, as numpy (a
-    ``plan.readback`` stage)."""
+    ``plan.readback`` stage); values that need a gradient are read as they
+    stand."""
     fields = ("rowptr", "row", "col", "value", "csc_colptr", "csc_row",
               "csc_col", "csc_value")
     with profiling.stage("plan.readback", bytes=sum(
             getattr(graph, f).nbytes for f in fields)):
-        return {f: getattr(graph, f).cpu().numpy() for f in fields}
+        return {f: getattr(graph, f).detach().cpu().numpy() for f in fields}
 
 
 def build_tiling(graph: CSRGraph, version: int = 5, k: int = 32,

@@ -130,7 +130,8 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 def test_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert names == ["fused.cu", "fused_bwd.cu", "sddmm.cu", "spmm_bsr.cu",
+    assert names == ["fused.cu", "fused_bwd.cu", "gat_attention.cu", "sddmm.cu",
+                     "spmm_bsr.cu",
                      "spmm_bsr_v3.cu", "spmm_minmax.cu", "spmm_minmax_v4.cu",
                      "spmm_rowblock.cu", "spmm_stream.cu", "spmm_v2.cu"]
 
