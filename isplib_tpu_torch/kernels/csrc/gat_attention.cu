@@ -34,16 +34,25 @@
 // bytes) once an entry, att_bwd_e the same; at K = 1024 that is 4 KiB an
 // entry, ~470 GB a pass over Reddit's 114.8M entries, far above the 4*(rows
 // + cols)*K bytes the roofline counts (each row once), so they run at the
-// gather rate of HBM and L2, not at the roofline.  att_gather holds a row
-// of x in the lanes (float4 chunks q = t*32 + lane of the row, head
-// q / (C/4), a lane's T chunks in registers), computes each entry's H
-// weights once, in the entry's own lane, into shared memory, and adds
-// a * x[c] for 32 entries in turn with U entries' loads in flight.
-// att_bwd_e needs a dot an entry and head, so it is laid out the other way:
-// an entry a lane, g[r] in shared memory (read as a broadcast), the lane
-// reading x[c] chunk by chunk, with no shuffle an entry.  Heads are padded
-// to a multiple of 4 features by the wrapper, so a float4 chunk belongs to
-// one head; K (padded) is at most 1024 and H at most 8.
+// gather rate of HBM and L2, not at the roofline.  Both read a row across
+// the warp, consecutive lanes on consecutive float4 chunks, with several
+// entries' loads in flight.  att_gather holds its output row in the lanes
+// (chunks q = t*32 + lane of the row, head q / (C/4), a lane's T chunks in
+// registers), computes each entry's H weights once, in the entry's own
+// lane, into shared memory, and adds a * x[c] for 32 entries in turn with
+// U entries' loads in flight.  att_bwd_e needs a dot an entry and head, so
+// it gives each head LH lanes (the largest power of 2 with LH*H <= 32: 8 at
+// 4 heads, 4 at 6), a lane chunks j, j + LH, ... of its head's C/4 (a head
+// of 11 chunks takes 3 a lane on 4 lanes), holds g[r] in those registers,
+// and sums each of 8 entries' products in a register.  A transposed
+// reduction then sums the 8 over the head's lanes: at each of the lane
+// bits 1, 2, 4 a lane keeps half its sums and sends the other half, so 8
+// entries cost 4 + 2 + 1 = 7 shuffles at LH = 8 (0.9 an entry, where a
+// warp sum an entry and head costs 5 * H = 20) and 4 + 2 = 6 at LH = 4,
+// and every lane ends with whole sums of its head (one entry at LH >= 8,
+// two at 4), whose a and dz it computes once.  Heads are padded to a
+// multiple of 4 features by the wrapper, so a float4 chunk belongs to one
+// head; K (padded) is at most 1024 and H at most 8.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -271,91 +280,166 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// dz of every entry of the CSR segments (an entry a lane), its column sum
-// into dss by atomics and its row sum into dsd.  T float4 chunks a lane
-// for the row's own g and out.
+// Sums v[0..7] (8 entries' partial dots) over the lh lanes of a head (lh a
+// power of 2, the group aligned): at lane bits 1, 2 and 4 (those under lh)
+// a lane keeps half its sums, entries base + i, and adds the other lane's
+// half; bits 8 and 16 add the last sum whole.  Returns how many sums the
+// lane holds (8 >> the bits halved); lanes j < 8 of the group hold each
+// entry once.
+__device__ __forceinline__ int reduce_entries(float (&v)[8], int lh, int j,
+                                              int& base) {
+  int m = 8;
+  base = 0;
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    const int o = 1 << b, half = 4 >> b;
+    if (o >= lh) break;  // uniform across the warp
+    const bool up = (j >> b) & 1;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = up ? v[i] : v[i + half];
+      const float keep = up ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    if (up) base += half;
+    m = half;
+  }
+  for (int o = 8; o < lh; o <<= 1)
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+  return m;
+}
+
+// Lanes a head in att_bwd_e: the largest power of 2 with lh * heads <= 32.
+__host__ __device__ __forceinline__ int lanes_a_head(int heads) {
+  int lh = 32;
+  while (lh * heads > 32) lh >>= 1;
+  return lh;
+}
+
+// Blocks an SM that att_bwd_e asks ptxas to fit, which caps its registers
+// a thread: 64 up to 4 chunks a lane, 128 up to 8, 255 beyond.  Without a
+// bound ptxas took 104 at 8 chunks and kept fewer of two entries' 16 loads
+// in flight (H100, 4 x 256 on Reddit's 114.6M entries: 110 ms against 74
+// at 128).  At 3 chunks 64 registers ran 18.4 ms; a bound of 2 blocks
+// (128) ran 21.2 and of 1 ran 31.6, each with fewer blocks an SM.
+constexpr int bwd_e_blocks(int t) { return t > 8 ? 1 : t > 4 ? 2 : 4; }
+
+// dz of every entry of the CSR segments, its row sum into dsd and the
+// added self loop's into dss by atomics.  Each entry's row x[c] is read by
+// the whole warp, each head's C/4 chunks by its lh lanes (T a lane), with U
+// entries' loads in flight; 8 entries' dots are summed over the head's
+// lanes by reduce_entries.
 template <int T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, bwd_e_blocks(T))
     att_bwd_e_kernel(const __grid_constant__ Args a) {
-  __shared__ float4 s_g[WARPS][MAXKP4];
+  constexpr int E = 8;  // entries summed before reducing
+  constexpr int U = T > 8 ? 1 : T > 4 ? 2 : T > 2 ? 4 : 8;
+  __shared__ int s_c[WARPS][32];
+  __shared__ float s_z[WARPS][32 * MAXH], s_a[WARPS][32 * MAXH];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int s = blockIdx.x * WARPS + warp;
   if (s >= a.nseg) return;  // uniform across the warp; no block barrier
-  const int H = a.heads, cp4 = a.cp4;
+  const int H = a.heads, cp4 = a.cp4, lh = lanes_a_head(H);
+  const int hd = lane / lh, j = lane % lh;
+  const bool act = hd < H;  // lanes past the last head idle
   const Seg sg(a, s);
-  const float4* g4 = reinterpret_cast<const float4*>(a.g) +
-                     static_cast<size_t>(sg.r) * a.kp4;
-  const float4* y4 = reinterpret_cast<const float4*>(a.y) +
-                     static_cast<size_t>(sg.r) * a.kp4;
-  // g[r] into shared memory, and D = <g[r,h], out[r,h]> in every lane
-  float dd[MAXH];
+  // the lane's chunks: off[t] from its first, its first again where the
+  // head has no chunk t (g is 0 there), so no load of a row is predicated;
+  // a lane without any chunk reads chunk 0
+  const size_t row0 = act && j < cp4 ? static_cast<size_t>(hd) * cp4 + j : 0;
+  int off[T];
 #pragma unroll
-  for (int h = 0; h < MAXH; ++h) dd[h] = 0.f;
+  for (int t = 0; t < T; ++t) off[t] = act && j + lh * t < cp4 ? lh * t : -1;
+  const float4* g4 = reinterpret_cast<const float4*>(a.g) +
+                     static_cast<size_t>(sg.r) * a.kp4 + row0;
+  const float4* y4 = reinterpret_cast<const float4*>(a.y) +
+                     static_cast<size_t>(sg.r) * a.kp4 + row0;
+  // the lane's chunks of g[r], and D = <g[r,h], out[r,h]> over the head
+  float4 gr[T];
+  float dd = 0.f;
 #pragma unroll
   for (int t = 0; t < T; ++t) {
-    const int q = t * 32 + lane;
-    if (q < a.kp4) {
-      const float4 gv = g4[q];
-      s_g[warp][q] = gv;
-      const float d = dot4(gv, y4[q]);
-      const int hq = q / cp4;
-#pragma unroll
-      for (int h = 0; h < MAXH; ++h)
-        if (h == hq) dd[h] += d;
+    gr[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (off[t] >= 0) {
+      gr[t] = g4[off[t]];
+      dd += dot4(gr[t], y4[off[t]]);
     }
+    off[t] = max(off[t], 0);
   }
-  float own_s[MAXH], own_l[MAXH], rsum[MAXH];
+  for (int o = 1; o < lh; o <<= 1) dd += __shfl_xor_sync(0xffffffffu, dd, o);
+  float rsum = 0.f;
+  const float4* x4 = reinterpret_cast<const float4*>(a.x) + row0;
+  int* sc = s_c[warp];
+  float* sz = s_z[warp];
+  float* sa = s_a[warp];
+  for (int b = sg.begin(); b < sg.e1; b += 32) {
+    {  // the batch's neighbours (-1: a self loop of the graph's), z and a
+      const int e = b + lane;
+      const int c = e < sg.e1 ? sg.nbr(a, e) : -1;
+      sc[lane] = c;
 #pragma unroll
-  for (int h = 0; h < MAXH; ++h) {
-    dd[h] = warp_sum(dd[h]);
-    own_s[h] = h < H ? a.sd[sg.r * H + h] : 0.f;
-    own_l[h] = h < H ? a.lse[sg.r * H + h] : 0.f;
-    rsum[h] = 0.f;
-  }
-  __syncwarp();
-  const float4* sg4 = s_g[warp];
-  const float4* x4 = reinterpret_cast<const float4*>(a.x);
-  for (int e = sg.begin() + lane; e < sg.e1; e += 32) {
-    const int c = sg.nbr(a, e);
-    if (c < 0) {  // a self loop of the graph's: no entry, dz 0
-#pragma unroll
-      for (int h = 0; h < MAXH; ++h)
-        if (h < H) a.dz[static_cast<size_t>(e) * H + h] = 0.f;
-      continue;
-    }
-    const float4* xr = x4 + static_cast<size_t>(c) * a.kp4;
-#pragma unroll
-    for (int h = 0; h < MAXH; ++h) {
-      if (h >= H) break;
-      float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
-      const int q0 = h * cp4, q1 = q0 + cp4;
-      int q = q0;
-      for (; q + 4 <= q1; q += 4) {
-        const float4 x0 = __ldg(xr + q), x1 = __ldg(xr + q + 1);
-        const float4 x2 = __ldg(xr + q + 2), x3 = __ldg(xr + q + 3);
-        d0 += dot4(sg4[q], x0);
-        d1 += dot4(sg4[q + 1], x1);
-        d2 += dot4(sg4[q + 2], x2);
-        d3 += dot4(sg4[q + 3], x3);
+      for (int h = 0; h < MAXH; ++h) {
+        if (h >= H) break;
+        float z = 0.f, al = 0.f;
+        if (c >= 0) {
+          z = a.sd[sg.r * H + h] + a.ss[c * H + h];
+          al = expf(leaky(z, a.slope) - a.lse[sg.r * H + h]);
+        }
+        sz[lane * MAXH + h] = z;
+        sa[lane * MAXH + h] = al;
       }
-      for (; q < q1; ++q) d0 += dot4(sg4[q], __ldg(xr + q));
-      const float dot = (d0 + d1) + (d2 + d3);
-      const float z = own_s[h] + a.ss[c * H + h];
-      const float al = expf(leaky(z, a.slope) - own_l[h]);
-      const float dz = al * (dot - dd[h]) * (z > 0.f ? 1.f : a.slope);
-      rsum[h] += dz;
-      if (e < sg.e0)  // the added self loop: its column is the row
-        atomicAdd(a.dss + c * H + h, dz);
-      else
-        a.dz[static_cast<size_t>(e) * H + h] = dz;
     }
-  }
+    __syncwarp();
+    const int n = min(32, sg.e1 - b);
+    for (int kb = 0; kb < n; kb += E) {
+      float part[E];
 #pragma unroll
-  for (int h = 0; h < MAXH; ++h) {
-    if (h >= H) break;
-    const float v = warp_sum(rsum[h]);
-    if (lane == 0) atomicAdd(a.dsd + sg.r * H + h, v);
+      for (int i = 0; i < E; i += U) {
+        float4 v[U][T];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int k = kb + i + u;
+          // past the batch or a self loop of the graph's: the segment's
+          // own row, whose dot no lane uses
+          const int c = k < n ? sc[k] : -1;
+          const float4* xr =
+              x4 + static_cast<size_t>(c >= 0 ? c : sg.r) * a.kp4;
+#pragma unroll
+          for (int t = 0; t < T; ++t) v[u][t] = __ldg(xr + off[t]);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float d = 0.f;
+#pragma unroll
+          for (int t = 0; t < T; ++t) d += dot4(gr[t], v[u][t]);
+          part[i + u] = d;
+        }
+      }
+      int base;
+      const int m = reduce_entries(part, lh, j, base);
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const int k = kb + base + i;
+        if (i >= m || !act || j >= E || k >= n) continue;
+        const int e = b + k;
+        if (sc[k] < 0) {  // a self loop of the graph's: no entry, dz 0
+          a.dz[static_cast<size_t>(e) * H + hd] = 0.f;
+          continue;
+        }
+        const float z = sz[k * MAXH + hd], al = sa[k * MAXH + hd];
+        const float dz = al * (part[i] - dd) * (z > 0.f ? 1.f : a.slope);
+        rsum += dz;
+        if (e < sg.e0)  // the added self loop: its column is the row
+          atomicAdd(a.dss + sg.r * H + hd, dz);
+        else
+          a.dz[static_cast<size_t>(e) * H + hd] = dz;
+      }
+    }
+    __syncwarp();
   }
+  for (int o = 1; o < lh; o <<= 1)
+    rsum += __shfl_xor_sync(0xffffffffu, rsum, o);
+  if (act && j == 0) atomicAdd(a.dsd + sg.r * H + hd, rsum);
 }
 
 // ds_src += the column sums of dz over the CSC segments (an entry a lane,
@@ -406,6 +490,12 @@ template <int T>
 int bwd_e(const Args& a, cudaStream_t s) {
   att_bwd_e_kernel<T><<<blocks(a), THREADS, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// a head's chunks a lane in att_bwd_e
+int bwd_e_chunks(const Args& a) {
+  const int lh = lanes_a_head(a.heads);
+  return (a.cp4 + lh - 1) / lh;
 }
 
 int chunks_a_lane(const Args& a) { return (a.kp4 + 31) / 32; }
@@ -460,7 +550,7 @@ extern "C" int att_bwd_e_launch(const gatt::Args* a, int device,
   if (const int bad = check(*a)) return bad;
   if (a->nseg == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (chunks_a_lane(*a)) {
+  switch (bwd_e_chunks(*a)) {
     case 1: return bwd_e<1>(*a, s);
     case 2: return bwd_e<2>(*a, s);
     case 3: return bwd_e<3>(*a, s);
@@ -468,7 +558,9 @@ extern "C" int att_bwd_e_launch(const gatt::Args* a, int device,
     case 5: return bwd_e<5>(*a, s);
     case 6: return bwd_e<6>(*a, s);
     case 7: return bwd_e<7>(*a, s);
-    default: return bwd_e<8>(*a, s);
+    case 8: return bwd_e<8>(*a, s);
+    case 9: case 10: case 11: case 12: return bwd_e<12>(*a, s);
+    default: return bwd_e<16>(*a, s);
   }
 }
 

@@ -17,7 +17,7 @@ import isplib_tpu_torch as pt
 from isplib_tpu_torch.kernels import gat_attention as katt
 from isplib_tpu_torch.nn import GAT, MODEL_REGISTRY
 from isplib_tpu_torch.ops import reference
-from isplib_tpu_torch.ops.attention import attention
+from isplib_tpu_torch.ops.attention import _pad, attention
 from isplib_tpu_torch.sparse.tiling import build_tiling
 from isplib_tpu_torch.sparse.tiling_v5 import SEG_EDGES
 from isplib_tpu_torch.train import make_train_step
@@ -40,7 +40,9 @@ def small_graph(n=60, e=300, seed=0, device="cpu"):
 
 def hub_graph(device="cpu", n=700):
     """A hub row cut into three segments, a hub column, a self loop of the
-    graph's own and an empty row (n - 1), over a dense corner."""
+    graph's own, an empty row (n - 1) and rows of a few entries (fewer
+    than the 8 that ``att_bwd_e`` sums before a reduction), over a dense
+    corner."""
     rng = np.random.default_rng(1)
     hub = 2 * SEG_EDGES + 10
     dst = np.concatenate([rng.integers(0, 64, 2000),
@@ -269,3 +271,36 @@ def test_cuda_path_calls_no_plain_function(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert katt.LAUNCHES - before == 18
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,c", [(4, 256), (6, 41), (8, 128), (1, 4),
+                                     (3, 12)])
+def test_backward_e_kernel_matches_plain_sums(cuda, heads, c):
+    """``backward_e`` alone (``att_bwd_e`` and ``att_colsum``, one launch
+    each) on a CUDA TiledGraph: ds_src and ds_dst against the plain
+    per-entry products summed by column and by row, within 1e-4 of each
+    output's scale (fp32 on both sides, the dots summed in other orders)."""
+    g = hub_graph(cuda)
+    tiled = build_tiling(g, dense_threshold=128)
+    base, n = tiled.graph, g.num_rows
+    x, s_src, s_dst = (t.detach() for t in operands(n, heads, c,
+                                                    device=cuda))
+    grad = torch.randn(n, heads * c, generator=torch.Generator()
+                       .manual_seed(2)).to(cuda)
+    xp, gp = _pad(x, heads), _pad(grad, heads)
+    dst, src = reference.attention_edges(base.row, base.col, base.nnz, n)
+    out, lse = reference.attention_raw(dst, src, xp, s_src, s_dst, n, 0.2)
+    before = dict(katt.BY_KERNEL)
+    dss, dsd = katt.backward_e(tiled.fwd_mm, base.col, tiled.bwd_mm,
+                               base.csc2csr, gp, out, xp, s_src, s_dst, lse,
+                               0.2)
+    torch.cuda.synchronize()
+    assert {k: katt.BY_KERNEL[k] - before[k] for k in katt.KERNELS} == {
+        "att_stats": 0, "att_gather": 0, "att_bwd_e": 1, "att_colsum": 1}
+    dz = reference.attention_edge_grad(dst, src, s_src, s_dst, lse, gp, out,
+                                       xp, 0.2)
+    for got, idx in ((dss, src), (dsd, dst)):
+        want = dz.new_zeros(n, heads).index_add_(0, idx, dz)
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
